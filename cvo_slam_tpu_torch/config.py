@@ -1,0 +1,231 @@
+"""Configuration for the PyTorch/CUDA port of CVO-SLAM (copy of cvo_slam_tpu.config).
+
+One serializable dataclass layer replacing the reference's two config systems:
+the hand-rolled ``name value`` parser for SLAM params (reference
+src/run_SLAM.cpp:145-238 into include/cfg.h:12-33) and the OpenCV YAML camera /
+ORB settings read by LocalTracker (src/local_tracker.cpp:64-96) and by each cvo
+instance (thirdparty/cvo/src/cvo.cpp:58-64).
+
+Defaults mirror the reference defaults (include/cfg.h); ``default_shipped()``
+mirrors the shipped config/config.txt values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class CameraConfig:
+    """Camera intrinsics + image/ORB settings (reference config/*.yaml)."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    # Depth map scaling: depth_m = depth_raw / depth_factor
+    # (reference keyframe.h:59-60, pcd_generator.cpp:473).
+    depth_factor: float = 5000.0
+    rgb: bool = True          # Camera.RGB: color order of input images
+    bf: float = 40.0          # Camera.bf: stereo baseline times fx
+    width: int = 640
+    height: int = 480
+    # ORB extractor settings (reference config/TUM1.yaml:24-42)
+    orb_n_features: int = 5000
+    orb_scale_factor: float = 1.2
+    orb_n_levels: int = 8
+    orb_ini_th_fast: int = 20
+    orb_min_th_fast: int = 7
+    orb_keypoint_distance: float = 0.0
+    # "opencv": one C++ cv2.ORB call (fast, learned rBRIEF pattern);
+    # "reference": the ORB-SLAM2-parity numpy extractor (per-level grid FAST
+    # + quadtree distribution + own BRIEF pattern)
+    orb_backend: str = "opencv"
+
+
+# Per-dataset presets (values from reference config/*.yaml; the ETH3D split
+# into three calibration groups follows pcd_generator.cpp:420-444 comments).
+CAMERA_PRESETS = {
+    "TUM1": CameraConfig(fx=517.306408, fy=516.469215, cx=318.643040,
+                         cy=255.313989, depth_factor=5000.0),
+    "TUM2": CameraConfig(fx=520.908620, fy=521.007327, cx=325.141442,
+                         cy=249.701764, depth_factor=5208.0),
+    "TUM3": CameraConfig(fx=535.4, fy=539.2, cx=320.1, cy=247.6,
+                         depth_factor=5000.0),
+    "ETH3D_1": CameraConfig(fx=726.28741455078, fy=726.28741455078,
+                            cx=354.6496887207, cy=186.46566772461,
+                            depth_factor=5000.0, width=739, height=458),
+    "ETH3D_2": CameraConfig(fx=726.21081542969, fy=726.21081542969,
+                            cx=359.2048034668, cy=202.47247314453,
+                            depth_factor=5000.0, width=739, height=458),
+    "ETH3D_3": CameraConfig(fx=726.30139160156, fy=726.30139160156,
+                            cx=356.69226074219, cy=186.45402526855,
+                            depth_factor=5000.0, width=739, height=458),
+}
+
+
+@dataclass(frozen=True)
+class CvoParams:
+    """CVO registration engine parameters (reference cvo.cpp:18-71)."""
+
+    ell_init: float = 0.15      # kernel length-scale initial value
+    sigma: float = 0.1          # kernel signal std
+    sp_thres: float = 8e-3      # sparsification threshold on the joint kernel
+    c: float = 7.0              # so(3) inner-product scale
+    d: float = 7.0              # R^3 inner-product scale
+    c_ell: float = 200.0        # color kernel length-scale
+    c_sigma: float = 1.0        # color kernel signal std
+    max_iter: int = 2000        # align loop cap (cvo.cpp:48)
+    min_step: float = 0.2       # fallback integration step (cvo.cpp:49)
+    max_step: float = 0.8       # step clamp (cvo.cpp:333)
+    eps: float = 5e-5           # flow-norm stop threshold (cvo.cpp:50)
+    eps_2: float = 1e-5         # se3-distance stop threshold (cvo.cpp:51)
+    # ell anneal schedule inside align (cvo.cpp:810-812): after iteration k,
+    # ell = 0.10 for k>2, 0.06 for k>9, 0.03 for k>19. The reference does
+    # NOT reset ell between alignments (cvo.cpp:383 commented out), so every
+    # alignment starts at the PREVIOUS alignment's final (fine, ~0.03) ell —
+    # a coarse-to-fine schedule that never goes coarse again. ell_reset=True
+    # (our default) restarts each alignment at ell_init: on the
+    # fast_rotation challenge mode the carried fine ell made the tracker
+    # blind to a 2.2 cm inter-frame motion and slipped a whole trajectory
+    # segment (tracking ATE 0.0047 -> 0.0015 with reset; PERF_NOTES round
+    # 5). Set False for strict reference parity (SURVEY hard-part 2 asks
+    # for the quirk to be reproduced or consciously fixed with documented
+    # impact — this is the documented fix).
+    ell_anneal_iters: tuple = (2, 9, 19)
+    ell_anneal_values: tuple = (0.10, 0.06, 0.03)
+    ell_reset: bool = True
+    # Hessian post-scale (cvo.cpp:727) and eigenvalue floor target (:740)
+    hessian_scale: float = -1.0 / 100000.0
+    hessian_min_abs_eig: float = 1.0
+    # Fused-align tile skipping: skip flags are computed once per alignment
+    # from the warm-start pose with the gate radius inflated by this margin
+    # (metres). The kernel tracks a conservative bound on accumulated point
+    # motion and force-computes every tile once it exceeds the margin, so
+    # skipping stays exact for arbitrarily large corrections.
+    skip_margin: float = 0.04
+
+
+@dataclass(frozen=True)
+class FrontendParams:
+    """Point selection / point-cloud generation (reference pcd_generator.cpp:21-24,
+    PixelSelector2.h:30-33)."""
+
+    num_want: int = 3000            # target selected pixels per frame
+    # fixed-capacity point-cloud slots (24*128). The selector lands within
+    # ~1% of num_want (measured 2998-3008 on the bench scenes), so 3072
+    # holds every selected point while cutting the dense pairwise work 1.36x
+    # vs the former 3584 (VERDICT r4 next 2a); overflow beyond capacity
+    # truncates in raster order, exactly as before.
+    cloud_capacity: int = 3072
+    pyr_levels: int = 3             # data_type.h:25
+    min_grad_hist_cut: float = 0.5  # setting_minGradHistCut
+    min_grad_hist_add: float = 7.0  # setting_minGradHistAdd
+    grad_downweight_per_level: float = 0.75  # setting_gradDownweightPerLevel
+    initial_potential: int = 3      # PixelSelector2.cpp:40
+    recursions: int = 1             # makeMaps default recursionsLeft=1
+    random_seed: int = 3141592      # PixelSelector2.cpp:37 (deterministic)
+    # 1 = raw BGR + gradients (pcd_generator.cpp:593-615, the call-site
+    # default :355); 0 = HSV + gradients normalized to ~[0,1] (:570-592),
+    # with the reference's COLOR_RGB2HSV-on-a-BGR-image channel quirk kept.
+    feature_type: int = 1
+
+
+@dataclass(frozen=True)
+class SlamConfig:
+    """SLAM-level tunables (reference include/cfg.h:12-33 defaults)."""
+
+    KFS_Distance: float = 0.15
+    KFS_Angle: float = 30.0
+    OptimizationIterations: int = 50
+    # Parsed for config-file parity but DEAD IN THE REFERENCE TOO: its only
+    # uses are commented out (keyframe_graph.cpp:278,325).
+    MinConstraintDistance: float = 1.0
+    # Gates the two BA outlier-pruning passes (backend/ba.py). The reference
+    # parses this (run_SLAM.cpp:171-173) but prunes unconditionally; we honor
+    # the knob (default True = reference behavior).
+    OptimizationRemoveOutliers: bool = True
+    UseMultiThreading: bool = False
+    # Both UseDenseGraph knobs are parsed for parity but DEAD IN THE
+    # REFERENCE TOO (only commented uses, keyframe_graph.cpp:179,1690).
+    OptimizationUseDenseGraph: bool = False
+    FinalOptimizationUseDenseGraph: bool = True
+    FinalOptimizationIterations: int = 1000
+    UseRobustKernel: bool = True
+    FE_InnpThreshold: float = 0.1
+    OnlyTracking: bool = False
+    LC_MinMatch: int = 50
+    LC_MatchThreshold: float = 0.6
+    RobustKernelDelta: float = 5.0
+    LC_MinScoreRatio: float = 0.7
+    Min_KF_interval: int = 10
+    Max_KF_interval: int = 20
+    # Extension over the reference: after the final BA, re-optimize every
+    # local map with BOTH endpoint keyframes pinned at their backend-
+    # optimized poses and rebuild frame_list relatives from the bridged
+    # solution (KeyframeGraph.refine_frame_lists). The reference freezes
+    # frame_list at insert time (keyframe_graph.cpp:1769-1777), leaving
+    # intra-map odometry slips uncorrected when loop closures move the
+    # keyframes. Set False for strict reference behavior.
+    RefineFrameLists: bool = True
+
+    cvo: CvoParams = field(default_factory=CvoParams)
+    frontend: FrontendParams = field(default_factory=FrontendParams)
+
+    @staticmethod
+    def default_shipped() -> "SlamConfig":
+        """Values of the shipped reference config/config.txt."""
+        return SlamConfig(
+            KFS_Distance=0.5, KFS_Angle=30.0, OptimizationIterations=50,
+            MinConstraintDistance=0.0, OptimizationRemoveOutliers=True,
+            UseMultiThreading=False, OptimizationUseDenseGraph=False,
+            FinalOptimizationUseDenseGraph=True, FinalOptimizationIterations=200,
+            UseRobustKernel=True, FE_InnpThreshold=0.7, OnlyTracking=False,
+            LC_MinMatch=10, LC_MatchThreshold=0.7, RobustKernelDelta=2.0,
+            LC_MinScoreRatio=0.3, Min_KF_interval=10, Max_KF_interval=20,
+        )
+
+    def replace(self, **kw) -> "SlamConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def parse_config_txt(path: str) -> SlamConfig:
+    """Parse a reference-style ``name value`` config file
+    (same grammar as run_SLAM.cpp:145-238)."""
+    cfg = SlamConfig()
+    kw = {}
+    fields = {f.name: f.type for f in dataclasses.fields(SlamConfig)}
+    bool_fields = {"OptimizationRemoveOutliers", "UseMultiThreading",
+                   "OptimizationUseDenseGraph", "FinalOptimizationUseDenseGraph",
+                   "UseRobustKernel", "OnlyTracking", "RefineFrameLists"}
+    int_fields = {"OptimizationIterations", "FinalOptimizationIterations",
+                  "LC_MinMatch", "Min_KF_interval", "Max_KF_interval"}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2 or parts[0] not in fields:
+                continue
+            name, val = parts[0], parts[1]
+            if name in bool_fields:
+                kw[name] = bool(int(val))
+            elif name in int_fields:
+                kw[name] = int(val)
+            else:
+                kw[name] = float(val)
+    return cfg.replace(**kw)
+
+
+def from_reference(obj):
+    """Rebuild this package's config instance from the JAX package's
+    equivalent (SlamConfig, CvoParams, FrontendParams or CameraConfig) via
+    dataclasses.asdict, so both packages run the same configuration. The
+    argument is only read through its dataclass fields."""
+    classes = {c.__name__: c for c in (SlamConfig, CvoParams, FrontendParams,
+                                       CameraConfig)}
+    cls = classes[type(obj).__name__]
+    kw = dataclasses.asdict(obj)
+    if cls is SlamConfig:
+        kw["cvo"] = CvoParams(**kw["cvo"])
+        kw["frontend"] = FrontendParams(**kw["frontend"])
+    return cls(**kw)

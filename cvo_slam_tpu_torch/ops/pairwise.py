@@ -1,0 +1,428 @@
+"""Dense masked pairwise CVO math in PyTorch (port of the parts of
+cvo_slam_tpu.ops.pairwise that tracking needs).
+
+  * thresholds of the geometric and colour gates (cvo.cpp:125-126);
+  * the 35-monomial moment basis of the fixed cloud and the O(M) epilogue
+    `flow_and_step_from_moments` that turns the moment matrix of one align
+    iteration into (omega, v, B, C, D, E) (cvo.cpp:187-334);
+  * the 13x13 Hessian moment algebra (`assemble_hessian`, cvo.cpp:620-759);
+  * `ip_suite`, the plain version of compute_innerproduct's pairwise work
+    (cvo.cpp:475-503), which the CUDA suite kernel is held against.
+
+All functions take fixed-capacity point clouds with validity masks; invalid
+slots contribute exactly zero. Reductions are deterministic.
+
+Pairwise dot products are written out per coordinate in a fixed order (a
+chain of fused multiply-adds) rather than as matrix products, so the CUDA
+kernels (cvo/kernels.py, csrc/) can repeat the same float operations and
+take the same gate decisions bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..config import CvoParams
+from . import se3
+
+
+# ---------------------------------------------------------------------------
+# thresholds (cvo.cpp:125-126, :395-396, :626-627)
+# ---------------------------------------------------------------------------
+
+def log_sp_ratio(p: CvoParams) -> float:
+    """log(sp_thres / sigma^2), the constant of the geometric gate."""
+    return math.log(p.sp_thres / (p.sigma * p.sigma))
+
+
+def d2_threshold(ell, p: CvoParams):
+    """Geometric squared-distance cutoff: -2 l^2 log(sp_thres / sigma^2)."""
+    return -2.0 * ell * ell * log_sp_ratio(p)
+
+
+def d2_color_threshold(p: CvoParams) -> float:
+    """Color squared-distance cutoff: -2 c_ell^2 log(sp_thres / c_sigma^2),
+    as the float32 value every gate compares against."""
+    return float(np.float32(-2.0 * p.c_ell * p.c_ell
+                            * np.log(p.sp_thres / (p.c_sigma * p.c_sigma))))
+
+
+def sq_norms(a):
+    """(N, K) -> (N,) sum of squares, accumulated column by column (no
+    fused multiply-add, as XLA's reduction on the CPU)."""
+    out = a[:, 0] * a[:, 0]
+    for c in range(1, a.shape[1]):
+        out = out + a[:, c] * a[:, c]
+    return out
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add a * b + c, rounded once: the product of two
+    f32 values is exact in f64, so one f64 add and one rounding to f32 give
+    the fused result (barring a double-rounding tie, ~2^-29 of cases)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def pair_dots(a, b):
+    """(M, K), (N, K) -> (M, N) dot products a_j . b_i as a chain of fused
+    multiply-adds, acc = a_0 b_0, acc = fma(a_c, b_c, acc): the rounding of
+    XLA's f32 dot on the CPU and of the CUDA suite kernel (__fmaf_rn)."""
+    out = a[:, None, 0] * b[None, :, 0]
+    for c in range(1, a.shape[1]):
+        out = _fma(a[:, None, c], b[None, :, c], out)
+    return out
+
+
+def pairwise_sq_dists(a, b):
+    """(M,3),(N,3) -> (M,N) squared distances via the dot-product identity
+    max(|a|^2 + |b|^2 - 2 a.b, 0) (ops/pairwise.py of the JAX package)."""
+    return torch.clamp(sq_norms(a)[:, None] + sq_norms(b)[None, :]
+                       - 2.0 * pair_dots(a, b), min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# moment basis and the moment-form epilogue (cvo.cpp:187-334)
+# ---------------------------------------------------------------------------
+# Per pair, every step-size Taylor factor is affine in x_i, so each of
+# B, C, D, E = sum_ij A_ij P(x_i; j) with P of degree <= 4 in x_i: a linear
+# functional of the 35 moments Mom_j = sum_i A_ij xt_i^alpha (xt = x minus
+# the masked centroid, |alpha| <= 4). The flow falls out of the degree-<=1
+# columns. Centering keeps the expansion conditioned.
+
+# all monomial index tuples over {0,1,2} with degree <= 4, grouped by degree
+_MONOMIALS = [()]
+_MONOMIALS += [(i,) for i in range(3)]
+_MONOMIALS += [(i, j) for i in range(3) for j in range(i, 3)]
+_MONOMIALS += [(i, j, k) for i in range(3) for j in range(i, 3)
+               for k in range(j, 3)]
+_MONOMIALS += [(i, j, k, l) for i in range(3) for j in range(i, 3)
+               for k in range(j, 3) for l in range(k, 3)]
+_MONO_INDEX = {m: i for i, m in enumerate(_MONOMIALS)}
+assert len(_MONOMIALS) == 35
+N_MOMENTS = len(_MONOMIALS)
+
+
+def step_moment_basis(x, mask):
+    """(centroid, U) of the fixed cloud: U is (N, 35), all monomials of
+    xt = x - centroid up to degree 4. The fixed cloud never changes across
+    align iterations (cvo.cpp:336-341), so this is computed once per align."""
+    w = mask.to(x.dtype)
+    c = torch.sum(x * w[:, None], dim=0) / torch.clamp(torch.sum(w), min=1.0)
+    xt = x - c
+    cols = [torch.ones(x.shape[0], dtype=x.dtype, device=x.device)]
+    for mono in _MONOMIALS[1:]:
+        col = xt[:, mono[0]]
+        for idx in mono[1:]:
+            col = col * xt[:, idx]
+        cols.append(col)
+    return c, torch.stack(cols, dim=1)
+
+
+def _poly_mul(p1, p2):
+    """Multiply polynomials-in-xt with (M,)-tensor coefficients, keyed by
+    sorted monomial index tuples."""
+    out = {}
+    for k1, v1 in p1.items():
+        for k2, v2 in p2.items():
+            k = tuple(sorted(k1 + k2))
+            out[k] = out.get(k, 0.0) + v1 * v2
+    return out
+
+
+def _poly_addmul(acc, poly, scale=1.0):
+    for k, v in poly.items():
+        acc[k] = acc.get(k, 0.0) + scale * v
+    return acc
+
+
+def _affine(const, vec):
+    """Affine per-j polynomial const_j + vec_j . xt: {(): (M,), (i,): (M,)}."""
+    return {(): const, (0,): vec[:, 0], (1,): vec[:, 1], (2,): vec[:, 2]}
+
+
+def flow_and_step_from_moments(Mom, y, center, ell, nnz, p: CvoParams):
+    """Epilogue of the moment-form pass: (omega, v, nnz, B, C, D, E) from
+    the moment matrix Mom (M, 35) of the transformed moving cloud y.
+    All work here is O(M)-sized — no (N, M) temporaries."""
+    # ---- flow (cvo.cpp:222-223) from the degree-<=1 columns -------------
+    M0 = Mom[:, 0]
+    M1 = Mom[:, 1:4]
+    dy = y - center
+    # D_j = sum_i A_ij (x_i - y_j): locally small (gate radius ~2.6 ell)
+    Dj = M1 - dy * M0[:, None]
+    # v = (1/d) sum_ij A (y_j - x_i) = -(1/d) sum_j D_j
+    v = -torch.sum(Dj, dim=0) / p.d
+    # omega: x_i x y_j = (x_i - y_j) x y_j, so sum_ij A (x x y) = sum_j D_j x y_j
+    omega = torch.sum(torch.linalg.cross(Dj, y, dim=1), dim=0) / p.c
+
+    # ---- step coefficients (cvo.cpp:239-315) ----------------------------
+    oh = se3.skew(omega)
+    oh2 = oh @ oh
+    oh3 = oh2 @ oh
+    oh4 = oh3 @ oh
+    xiz = y @ oh.T + v[None, :]
+    xi2z = y @ oh2.T + (oh @ v)[None, :]
+    xi3z = y @ oh3.T + (oh2 @ v)[None, :]
+    xi4z = y @ oh4.T + (oh3 @ v)[None, :]
+
+    tc = 1.0 / (2.0 * ell * ell)
+    two_tc = 2.0 * tc
+
+    def ddot(u):
+        return torch.sum(u * dy, dim=1)          # u_j . (y_j - center)
+
+    normxiz2 = torch.sum(xiz * xiz, dim=1)
+    xiz_dot_xi2z = torch.sum(xiz * xi2z, dim=1)
+    epsil_const = torch.sum(xi2z * xi2z, dim=1) \
+        + 2.0 * torch.sum(xiz * xi3z, dim=1)
+    # beta  = -2tc xiz.(x - y)  = (2tc xiz.dy) + (-2tc xiz).xt
+    beta = _affine(two_tc * ddot(xiz), -two_tc * xiz)
+    gamma = _affine(-tc * normxiz2 + two_tc * ddot(xi2z), -two_tc * xi2z)
+    delta = _affine(-two_tc * xiz_dot_xi2z + two_tc * ddot(xi3z),
+                    -two_tc * xi3z)
+    epsil = _affine(-tc * epsil_const + two_tc * ddot(xi4z), -two_tc * xi4z)
+
+    b2 = _poly_mul(beta, beta)
+    bg = _poly_mul(beta, gamma)
+    # PB = beta;  PC = gamma + beta^2/2;  PD = delta + beta*gamma + beta^3/6
+    # PE = epsil + beta*delta + beta^2 gamma/2 + gamma^2/2 + beta^4/24
+    PB = dict(beta)
+    PC = _poly_addmul(dict(gamma), b2, 0.5)
+    PD = _poly_addmul(_poly_addmul(dict(delta), bg),
+                      _poly_mul(b2, beta), 1.0 / 6.0)
+    PE = _poly_addmul(_poly_addmul(dict(epsil), _poly_mul(beta, delta)),
+                      _poly_mul(b2, gamma), 0.5)
+    PE = _poly_addmul(PE, _poly_mul(gamma, gamma), 0.5)
+    PE = _poly_addmul(PE, _poly_mul(b2, b2), 1.0 / 24.0)
+
+    def contract(poly):
+        return sum(torch.dot(coef, Mom[:, _MONO_INDEX[k]])
+                   for k, coef in poly.items())
+
+    return omega, v, nnz, contract(PB), contract(PC), contract(PD), \
+        contract(PE)
+
+
+# ---------------------------------------------------------------------------
+# se3_Hessian via 13x13 weighted moments (cvo.cpp:620-759)
+# ---------------------------------------------------------------------------
+# Each 6x6 Hessian entry is H[r,c] = il2 * (il2 * <hi_poly> + <lo_poly>)
+# where <P> = sum_ij w_ij P(a_i, b_j), w_ij = k_ij (f_a.f_b)_ij gate_ij,
+# il2 = 1/l^2, and each poly is degree <=2 in a and <=2 in b — a linear
+# functional of the moment matrix G = U_a^T W U_b with U = [1, p, vec(pp^T)].
+
+
+class _Poly:
+    """Tiny polynomial in a0..a2, b0..b2 (degree <=2 per side)."""
+
+    def __init__(self, terms=None):
+        self.terms = dict(terms or {})  # {(a_idx_tuple, b_idx_tuple): coef}
+
+    @staticmethod
+    def const(c=1.0):
+        return _Poly({((), ()): float(c)})
+
+    @staticmethod
+    def a(i):
+        return _Poly({((i,), ()): 1.0})
+
+    @staticmethod
+    def b(i):
+        return _Poly({((), (i,)): 1.0})
+
+    def __add__(self, o):
+        t = dict(self.terms)
+        for k, v in o.terms.items():
+            t[k] = t.get(k, 0.0) + v
+        return _Poly(t)
+
+    def __sub__(self, o):
+        return self + (o * -1.0)
+
+    def __mul__(self, o):
+        if isinstance(o, (int, float)):
+            return _Poly({k: v * o for k, v in self.terms.items()})
+        t = {}
+        for (a1, b1), c1 in self.terms.items():
+            for (a2, b2), c2 in o.terms.items():
+                ka = tuple(sorted(a1 + a2))
+                kb = tuple(sorted(b1 + b2))
+                assert len(ka) <= 2 and len(kb) <= 2, "degree overflow"
+                t[(ka, kb)] = t.get((ka, kb), 0.0) + c1 * c2
+        return _Poly(t)
+
+    __rmul__ = __mul__
+
+
+def _u_index(idx):
+    """Map a monomial index tuple to the row of U = [1, p0..p2, vec(pp^T)]."""
+    if len(idx) == 0:
+        return 0
+    if len(idx) == 1:
+        return 1 + idx[0]
+    p, q = idx
+    return 4 + 3 * p + q
+
+
+@lru_cache(maxsize=1)
+def _hessian_polys():
+    """The (hi, lo) polynomial pair of each of the 36 Hessian entries,
+    mirroring the block formulas of cvo.cpp:666-704, each flattened to
+    (rows, cols, coefs) against the 13x13 G."""
+    a = [_Poly.a(i) for i in range(3)]
+    b = [_Poly.b(i) for i in range(3)]
+    zero = _Poly()
+    cross = [a[1] * b[2] - a[2] * b[1],
+             a[2] * b[0] - a[0] * b[2],
+             a[0] * b[1] - a[1] * b[0]]
+    diff = [b[i] - a[i] for i in range(3)]
+    one = _Poly.const(1.0)
+
+    # Block A (cvo.cpp:666-675)
+    A_ = [[None] * 3 for _ in range(3)]
+    dots = [a[1] * b[1] + a[2] * b[2],
+            a[0] * b[0] + a[2] * b[2],
+            a[0] * b[0] + a[1] * b[1]]
+    for i in range(3):
+        A_[i][i] = (cross[i] * cross[i], zero - dots[i])
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        lo = 0.5 * (a[i] * b[j] + a[j] * b[i])
+        A_[i][j] = A_[j][i] = (cross[i] * cross[j], lo)
+
+    # Block C (cvo.cpp:677-688): C[r][c]
+    C_ = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        C_[i][i] = (cross[i] * diff[i], zero)
+    C_[1][0] = (diff[1] * cross[0], a[2] * one)
+    C_[2][0] = (diff[2] * cross[0], zero - a[1])
+    C_[0][1] = (diff[0] * cross[1], zero - a[2])
+    C_[2][1] = (diff[2] * cross[1], a[0] * one)
+    C_[0][2] = (diff[0] * cross[2], a[1] * one)
+    C_[1][2] = (diff[1] * cross[2], zero - a[0])
+
+    # Block D (cvo.cpp:690-697)
+    D_ = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        D_[i][i] = (diff[i] * diff[i], zero - one)
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        D_[i][j] = D_[j][i] = (diff[i] * diff[j], zero)
+
+    # Assemble 6x6: [[A, C^T], [C, D]] (cvo.cpp:699-704)
+    H = [[None] * 6 for _ in range(6)]
+    for i in range(3):
+        for j in range(3):
+            H[i][j] = A_[i][j]
+            H[i][3 + j] = C_[j][i]      # C^T
+            H[3 + i][j] = C_[i][j]
+            H[3 + i][3 + j] = D_[i][j]
+
+    def compile_poly(poly):
+        rows, cols, coefs = [], [], []
+        for (ia, ib), c in poly.terms.items():
+            if c == 0.0:
+                continue
+            rows.append(_u_index(ia))
+            cols.append(_u_index(ib))
+            coefs.append(c)
+        return rows, cols, np.array(coefs, np.float32)
+
+    return [[(compile_poly(H[r][c][0]), compile_poly(H[r][c][1]))
+             for c in range(6)] for r in range(6)]
+
+
+def lift_u(pts):
+    """(N,3) -> (N,13) moment features U = [1, p, vec(p p^T)]."""
+    n = pts.shape[0]
+    ones = torch.ones((n, 1), dtype=pts.dtype, device=pts.device)
+    outer = (pts[:, :, None] * pts[:, None, :]).reshape(n, 9)
+    return torch.cat([ones, pts, outer], dim=1)
+
+
+@lru_cache(maxsize=None)
+def _hessian_operator(device: torch.device):
+    """(hi, lo) as (36, 169) f32 matrices on `device`: row 6r+c holds the
+    coefficients of Hessian entry (r, c) against the flattened 13x13 G."""
+    mats = np.zeros((2, 36, 169), np.float32)
+    for r in range(6):
+        for c in range(6):
+            for side, (rows, cols, coefs) in enumerate(_hessian_polys()[r][c]):
+                for i, j, co in zip(rows, cols, coefs):
+                    mats[side, 6 * r + c, 13 * i + j] += co
+    t = torch.from_numpy(mats).to(device)
+    return t[0], t[1]
+
+
+def assemble_hessian(G, ell):
+    """6x6 Hessian from the 13x13 moment matrix G (exact index algebra):
+    H = il2 * (il2 * hi + lo) with hi, lo linear in G."""
+    il2 = 1.0 / (ell * ell)
+    hi_op, lo_op = _hessian_operator(G.device)
+    g = G.reshape(169)
+    return (il2 * (il2 * (hi_op @ g) + lo_op @ g)).reshape(6, 6)
+
+
+# ---------------------------------------------------------------------------
+# fused inner-product suite (compute_innerproduct, cvo.cpp:475-503)
+# ---------------------------------------------------------------------------
+
+def _gated_sum_count(d2, d2c, gate, ell, p: CvoParams):
+    """(sum of the joint kernel, pair count) over `gate`."""
+    k = (p.sigma * p.sigma) * torch.exp(
+        torch.clamp(-d2 / (2.0 * ell * ell), min=-20.0))
+    ck = (p.c_sigma * p.c_sigma) * torch.exp(
+        torch.clamp(-d2c / (2.0 * p.c_ell * p.c_ell), min=-20.0))
+    value = torch.sum(torch.where(gate, ck * k, torch.zeros_like(k)))
+    return value, torch.sum(gate, dtype=torch.int32), k
+
+
+def _floor1(n):
+    """Counted inner-product payload floored at 1 (cvo.cpp:454-456)."""
+    n = n.to(torch.float32)
+    return torch.where(n == 0, torch.ones_like(n), n)
+
+
+def ip_suite(x, fx, mx, y, fy, my, yt, ell, p: CvoParams):
+    """Everything compute_innerproduct needs, with the shared pairwise
+    subexpressions computed once: fy.fx serves the color distance of the pre
+    and post inner products and the Hessian pair weight (cvo.cpp:652); the
+    post inner product and the Hessian share d2(yt, x) (cvo.cpp:485, :500).
+
+    Rows are moving points (y, yt), columns fixed points (x). Returns
+    (pre_v, pre_n, post_v, post_n, fixed_v, fixed_n, moving_v, moving_n, G,
+    inliers): sums as f32 scalars, *_n the f32 pair counts floored at 1, G
+    the (13,13) Hessian moment matrix, inliers the int32 post pair count."""
+    d2t = d2_threshold(ell, p)
+    d2ct = d2_color_threshold(p)
+
+    def color(fa, ma, fb, mb):
+        dots = pair_dots(fa, fb)
+        d2c = torch.clamp(sq_norms(fa)[:, None] + sq_norms(fb)[None, :]
+                          - 2.0 * dots, min=0.0)
+        return d2c, (d2c < d2ct) & ma[:, None] & mb[None, :], dots
+
+    d2c, cgate, cdot = color(fy, my, fx, mx)
+    d2_pre = pairwise_sq_dists(y, x)
+    pre_v, pre_n, _ = _gated_sum_count(d2_pre, d2c, (d2_pre < d2t) & cgate,
+                                       ell, p)
+    d2_post = pairwise_sq_dists(yt, x)
+    gate_post = (d2_post < d2t) & cgate
+    post_v, post_n, k_post = _gated_sum_count(d2_post, d2c, gate_post, ell, p)
+
+    d2c_x, cgate_x, _ = color(fx, mx, fx, mx)
+    d2_x = pairwise_sq_dists(x, x)
+    fixed_v, fixed_n, _ = _gated_sum_count(d2_x, d2c_x, (d2_x < d2t) & cgate_x,
+                                           ell, p)
+    d2c_y, cgate_y, _ = color(fy, my, fy, my)
+    d2_y = pairwise_sq_dists(y, y)
+    moving_v, moving_n, _ = _gated_sum_count(d2_y, d2c_y,
+                                             (d2_y < d2t) & cgate_y, ell, p)
+
+    # Hessian moments: weight w = k * (f_a . f_b) over the post gate
+    W = torch.where(gate_post, k_post * cdot, torch.zeros_like(cdot))
+    G = lift_u(yt).T @ (W @ lift_u(x))
+    return (pre_v, _floor1(pre_n), post_v, _floor1(post_n), fixed_v,
+            _floor1(fixed_n), moving_v, _floor1(moving_n), G, post_n)

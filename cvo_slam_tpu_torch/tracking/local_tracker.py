@@ -1,0 +1,271 @@
+"""Per-frame tracking orchestration: two CVO instances + the local map
+(port of cvo_slam_tpu.tracking.local_tracker).
+
+Re-expression of reference LocalTracker (reference src/local_tracker.cpp):
+owns `cvo_odometry` (frame-to-frame) and `cvo_keyframe` (keyframe-to-frame)
+instances (local_tracker.cpp:48-49, 143) and the current LocalMap. Signals are
+plain callable lists (accept = AND over all callbacks, local_tracker.h:65-83).
+
+The frontend runs once per frame and the cloud is shared by both instances
+(the reference builds it twice with a deterministic selector). Keyframe ORB
+extraction (local_tracker.cpp:292-300) comes with the backend.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, List, Optional
+
+import numpy as np
+
+from ..config import CameraConfig, SlamConfig
+from ..cvo import engine
+from ..cvo.engine import Cvo, PointCloud
+from ..data.tum import ImagePair
+from ..device import resolve_device
+from ..frontend.pointcloud import create_pointcloud
+from .local_map import LocalMap
+from .types import Keyframe, TrackingResult
+
+
+# -- device-dispatch request protocol ----------------------------------------
+# The per-frame tracking logic is written as generators that YIELD device-math
+# requests and receive results via send(); `drive` runs one generator with an
+# executor that services each request.
+#   ("frame", odo_cvo, kf_cvo, cloud, pixels)
+#       -> (T_odo, ip_odo, T_kf, ip_kf)  [the whole frame: both set_pcds,
+#          odometry align+ip, device-side reset_initial warm start, keyframe
+#          align+ip (engine.frame_step)]
+#   ("align_ip", cvo, cloud, pixels) -> ((4,4) transform, ip dict)
+#                                       [set_pcd + align + innerproduct]
+#   ("ip", cvo, tran)                -> compute_innerproduct dict
+
+def _execute_frame(odo: Cvo, kfc: Cvo, cloud, pixels):
+    ready = odo.set_pcd(cloud, pixels)
+    assert ready, "cvo not initialized"
+    ready = kfc.set_pcd(cloud, pixels)
+    assert ready, "cvo not initialized"
+    res1, ip1, res2, ip2, _ = engine.frame_step(
+        odo.fixed, kfc.fixed, odo.moving, odo.R, odo.T,
+        np.float32(odo.start_ell()), kfc.transform.astype(np.float32),
+        np.float32(kfc.start_ell()), odo.params)
+    h1, hip1, h2, hip2 = engine.to_host((tuple(res1), ip1, tuple(res2), ip2))
+    return odo._apply_align(*h1), hip1, kfc._apply_align(*h2), hip2
+
+
+def execute_request(req):
+    kind, cvo = req[0], req[1]
+    if kind == "frame":
+        return _execute_frame(req[1], req[2], req[3], req[4])
+    if kind == "align_ip":
+        ready = cvo.set_pcd(req[2], req[3])   # match_odometry (cvo.cpp:461-473)
+        assert ready, "cvo not initialized"
+        return cvo._align_with_innerproduct()
+    if kind == "ip":
+        return cvo.compute_innerproduct(req[2])
+    raise ValueError(f"unknown request kind {kind!r}")
+
+
+def drive(gen, executor=execute_request):
+    """Run a request generator to completion solo; returns its value."""
+    try:
+        req = next(gen)
+        while True:
+            req = gen.send(executor(req))
+    except StopIteration as e:
+        return e.value
+
+
+class LocalTracker:
+
+    def __init__(self, cam: CameraConfig, cfg: SlamConfig,
+                 log: Optional[Callable[[str], None]] = None,
+                 device="cuda"):
+        self.cam = cam
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.cvo_odometry = Cvo(cfg.cvo)
+        self.cvo_keyframe = Cvo(cfg.cvo)
+        self.local_map: Optional[LocalMap] = None
+        self.reference_result: Optional[TrackingResult] = None  # map-init r_odometry
+        self.new_map = False
+        self.force = False
+        self.next_kf_id = 0
+        self.accept_callbacks: List[Callable] = []
+        self.map_initialized_callbacks: List[Callable] = []
+        self.map_complete_callbacks: List[Callable] = []
+        self.log = log or (lambda s: None)
+        self.metrics = {}
+        self.executor = execute_request
+
+    # -- frontend: one cloud per frame, shared by both cvo instances
+    def _make_cloud(self, image: ImagePair):
+        pc = image.precomputed_cloud   # filled by data.prefetch (pipelined)
+        if pc is None:
+            pc = create_pointcloud(image.bgr, image.gray, image.depth,
+                                   self.cam, self.cfg.frontend)
+        return (PointCloud.from_host(pc, self.device),
+                pc.selected_pixels[:pc.count].copy())
+
+    def _make_keyframe(self, image: ImagePair, pose: np.ndarray,
+                       cloud: PointCloud, pixels: np.ndarray) -> Keyframe:
+        kf = Keyframe(id=self.next_kf_id, timestamp=image.timestamp,
+                      pose=np.asarray(pose, np.float64).copy(), cloud=cloud,
+                      selected_pixels=pixels, gray=image.gray,
+                      depth_m=image.depth.astype(np.float32) / self.cam.depth_factor)
+        self.next_kf_id += 1
+        return kf
+
+    # -- initNewLocalMap, public overload (local_tracker.cpp:223-284)
+    def init_new_local_map(self, keyframe_img: ImagePair, frame_img: ImagePair,
+                           keyframe_pose: np.ndarray):
+        return drive(self.init_new_local_map_steps(keyframe_img, frame_img,
+                                                   keyframe_pose),
+                     self.executor)
+
+    def init_new_local_map_steps(self, keyframe_img: ImagePair,
+                                 frame_img: ImagePair,
+                                 keyframe_pose: np.ndarray):
+        kf_cloud, kf_pix = self._make_cloud(keyframe_img)
+        fr_cloud, fr_pix = self._make_cloud(frame_img)
+        self.cvo_odometry.set_pcd(kf_cloud, kf_pix)
+        self.cvo_keyframe.set_pcd(kf_cloud, kf_pix)
+        T, ip = yield ("align_ip", self.cvo_odometry, fr_cloud, fr_pix)
+        r_odometry = TrackingResult.from_innerproduct(T, ip)
+        self.cvo_odometry.update_fixed_pcd()
+        self._init_new_local_map(keyframe_img, frame_img, r_odometry,
+                                 keyframe_pose, kf_cloud, kf_pix)
+
+    # -- initNewLocalMap, internal overload (local_tracker.cpp:286-347)
+    def _init_new_local_map(self, keyframe_img: ImagePair, frame_img: ImagePair,
+                            r_odometry: TrackingResult, keyframe_pose: np.ndarray,
+                            kf_cloud: PointCloud, kf_pixels: np.ndarray):
+        kf = self._make_keyframe(keyframe_img, keyframe_pose, kf_cloud, kf_pixels)
+        self.local_map = LocalMap(kf, np.asarray(keyframe_pose, np.float64).copy(),
+                                  self.cfg)
+        self.local_map.add_frame(frame_img, frame_img.timestamp)
+        self.log("Initialize a new local map")
+        if self.cvo_keyframe.first_frame:
+            self.cvo_keyframe.first_frame = False
+            self.cvo_keyframe.reset_transform(r_odometry.transform)
+        else:
+            self.cvo_keyframe.reset_keyframe(r_odometry.transform)
+            self.new_map = True
+        self.local_map.add_keyframe_measurement(r_odometry)
+        self.reference_result = copy.deepcopy(r_odometry)
+        for cb in self.map_initialized_callbacks:
+            cb(self, self.local_map, r_odometry)
+
+    # -- update (local_tracker.cpp:349-572)
+    def update(self, image: ImagePair) -> np.ndarray:
+        return drive(self.update_steps(image), self.executor)
+
+    def update_steps(self, image: ImagePair):
+        self.new_map = False
+        cloud, pixels = self._make_cloud(image)
+
+        # the whole frame: odometry align+ip, device-side warm start
+        # (reset_initial), keyframe align+ip. The rare NaN-repair paths below
+        # redo the affected pieces solo.
+        T_raw, ip, T_kraw, ip2 = yield ("frame", self.cvo_odometry,
+                                        self.cvo_keyframe, cloud, pixels)
+        T_odo = self._nan_guard(T_raw, "odometry")
+        if T_odo is not T_raw:
+            ip = yield ("ip", self.cvo_odometry, T_odo.astype(np.float32))
+            # the keyframe align warm-started from the bad odometry
+            # transform; redo it from the repaired one (the host-sequenced
+            # order: guard first, then reset_initial + align)
+            self.cvo_keyframe.reset_initial(T_odo)
+            T_kraw, ip2 = yield ("align_ip", self.cvo_keyframe, cloud, pixels)
+        r_odometry = TrackingResult.from_innerproduct(T_odo, ip)
+        self.metrics["odo_iters"] = self.cvo_odometry.iters
+        self.metrics["odo_nnz"] = self.cvo_odometry.nnz
+
+        last_cloud = self.cvo_odometry.fixed              # previous frame cloud
+        last_pixels = self.cvo_odometry.fixed_pixels
+        current_cloud, current_pixels = cloud, pixels
+        self.cvo_odometry.update_fixed_pcd()
+
+        T_kf = self._nan_guard(T_kraw, "keyframe",
+                               fallback=self._kf_prior(T_odo))
+        if T_kf is not T_kraw:
+            ip2 = yield ("ip", self.cvo_keyframe, T_kf.astype(np.float32))
+        r_keyframe = TrackingResult.from_innerproduct(T_kf, ip2)
+        r_keyframe.dis_to_keyframe = self.local_map.get_frame_number()
+        self.metrics["kf_iters"] = self.cvo_keyframe.iters
+        self.metrics["kf_nnz"] = self.cvo_keyframe.nnz
+        # structured per-frame observability: inner products, cos angles,
+        # accept inputs
+        self.metrics["odo_inn_post"] = r_odometry.inn_post
+        self.metrics["kf_inn_post"] = r_keyframe.inn_post
+        self.metrics["kf_cos_angle"] = r_keyframe.cos_angle
+        self.metrics["kf_dist"] = float(np.linalg.norm(T_kf[:3, 3]))
+
+        # keyframe decision: AND over all criteria (evaluated unconditionally,
+        # matching the boost combiner + its logging side effects)
+        self.log("Check whether a new keyframe is needed")
+        votes = [cb(self, r_odometry, r_keyframe) for cb in self.accept_callbacks]
+        self.metrics["accept"] = int(all(votes))
+        if all(votes) and not self.force:
+            self.log("Update current local pose graph")
+            self.local_map.add_frame(image, image.timestamp)
+            self.local_map.add_odometry_measurement(r_odometry)
+            self.local_map.add_keyframe_measurement(r_keyframe)
+            self.cvo_keyframe.update_previous_pcd()
+        else:
+            self.log("Current local pose graph completes")
+            prev_frame_img = self.local_map.get_current_frame()
+            current_pose = self.local_map.get_current_frame_pose()
+            for cb in self.map_complete_callbacks:
+                cb(self, self.local_map)
+            self._init_new_local_map(prev_frame_img, image, r_odometry,
+                                     current_pose, last_cloud, last_pixels)
+            if self.force:
+                # final frame: it becomes the second keyframe of the last map
+                # (local_tracker.cpp:523-567)
+                self.local_map.set_last_map()
+                kf = self._make_keyframe(image,
+                                         self.local_map.get_current_frame_pose(),
+                                         current_cloud, current_pixels)
+                self.local_map.set_last_keyframe(kf)
+                for cb in self.map_complete_callbacks:
+                    cb(self, self.local_map)
+                return self.local_map.get_current_frame_pose()
+        return self.local_map.get_current_frame_pose()
+
+    # -- failure detection: a non-finite solver output falls back to the
+    #    prior transform and is recorded in metrics
+    def _nan_guard(self, T: np.ndarray, which: str,
+                   fallback: np.ndarray = None) -> np.ndarray:
+        if np.isfinite(T).all():
+            return T
+        self.metrics[f"nan_{which}"] = self.metrics.get(f"nan_{which}", 0) + 1
+        self.log(f"WARNING: non-finite {which} transform; using prior")
+        fb = np.eye(4) if fallback is None else np.asarray(fallback, np.float64)
+        # re-seat the cvo state so subsequent warm starts stay finite
+        cvo = self.cvo_odometry if which == "odometry" else self.cvo_keyframe
+        inv = np.linalg.inv(fb)
+        cvo.R = inv[:3, :3].astype(np.float32)
+        cvo.T = inv[:3, 3].astype(np.float32)
+        cvo.transform = fb.copy()
+        return fb
+
+    def _kf_prior(self, T_odo: np.ndarray) -> np.ndarray:
+        """Prior for the keyframe transform: last keyframe transform chained
+        with the current odometry (the reset_initial warm-start guess)."""
+        prior = self.cvo_keyframe.transform
+        if not np.isfinite(prior).all():
+            return np.eye(4)
+        return prior
+
+    def get_local_map(self):
+        return self.local_map
+
+    def get_current_pose(self) -> np.ndarray:
+        return self.local_map.get_current_frame_pose()
+
+    def check_new_map(self) -> bool:
+        return self.new_map
+
+    def force_complete_current_local_map(self):
+        self.force = True
