@@ -20,15 +20,26 @@ Phases; any failure exits non-zero:
      plain version as much as for the kernel (measured against an f64
      evaluation of the same Mom). Times by CUDA events (median of 5 runs
      of 10 launches) beside the plain version's time and the bound;
+     The pair-stats kernel is held the same way, with and without
+     moments: value and count, G and inliers;
   3. tracking: tracking-only SLAM at 640x480 / CAP 3072 on a 16-frame
      synthetic sequence through app.run_slam.run(device="cuda"), with the
      launch counters set to 0 just before and read just after; checks one
      finite pose per frame, both counters non-zero (the suite exactly one
      launch per alignment) and the position error against the ground truth
      below 0.05 m;
-  4. one engine.frame_step under torch.profiler: device busy share and
+  4. SLAM: the whole system (SlamConfig.default_shipped(), OnlyTracking
+     False: tracking, keyframe graph, ORB + BoW, loop closure, windowed BA,
+     final BA, frame-list refinement) through app.run_slam.run on a
+     synthetic out-and-back sequence at 640x480 / CAP 3072 with the TUM1
+     camera and ORB at 5000 features, counters set to 0 just before and
+     read just after; fails unless every kernel launched (pair_stats from
+     the loop-closure verification), at least one loop-closure edge was
+     accepted, every loop_closure.txt row has 62 fields and the SLAM ATE is
+     below 0.05 m;
+  5. one engine.frame_step under torch.profiler: device busy share and
      kernel launches per align iteration;
-  5. a JSON line with every kernel's numbers, the card line, and last
+  6. a JSON line with every kernel's numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 The bound of a kernel is the larger of operations / 67 TFLOP/s (fp32 on
@@ -49,6 +60,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12        # FLOP/s, H100 SXM, CUDA cores
 PEAK_BYTES = 3.35e12     # B/s, H100 SXM HBM3
 N_FRAMES = 16
+# out-and-back SLAM sequence: SLAM_OUT frames out, then back, at 1.5x the
+# generator's default step twist (10 keyframes and 5 loop-closure rounds
+# under the shipped keyframe policy on the H100)
+SLAM_OUT = 24
+SLAM_STEP = (0.006, -0.009, 0.0045, 0.015, -0.009, 0.012)
 CAPS = (3072, 3000)
 ELLS = (0.15, 0.06)
 TWIST = (0.02, -0.01, 0.03, 0.05, 0.02, -0.04)   # post transform of the suite
@@ -142,6 +158,25 @@ def suite_counts(x, fx, mx, y, fy, my, yt, ell, p):
     return ops, nbytes
 
 
+def pair_stats_counts(xa, fa, ma, xb, fb, mb, ell, p, with_moments):
+    """One pair set of the suite: colour distance of a valid pair 14,
+    geometric distance of a colour-gated pair 10, a gated pair 12, and with
+    moments W U(xb) of a gated pair 36 (the suite's post set)."""
+    import torch
+    from cvo_slam_tpu_torch.ops import pairwise
+    valid = ma[:, None] & mb[None, :]
+    d2c = ((fa[:, None, :] - fb[None, :, :]) ** 2).sum(-1)
+    cg = valid & (d2c < pairwise.d2_color_threshold(p))
+    d2 = ((xa[:, None, :] - xb[None, :, :]) ** 2).sum(-1)
+    g = cg & (d2 < pairwise.d2_threshold(torch.tensor(ell), p).item())
+    ops = 14 * int(valid.sum()) + 10 * int(cg.sum()) \
+        + (48 if with_moments else 12) * int(g.sum())
+    n, m = xa.shape[0], xb.shape[0]
+    nbytes = (n + m) * ((3 + 5) * 4 + 1) + 4 \
+        + ((169 + 1) * 4 + 4 if with_moments else 2 * 4)
+    return ops, nbytes
+
+
 def bound_ms(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -226,6 +261,30 @@ def kernel_checks(clouds, p, report):
                   f"{[int(got[k]) for k in (1, 3, 5, 7)]} inliers "
                   f"{int(got[9])} equal, max |err| {err:.3e}", flush=True)
 
+            # pair stats of the loop-closure post set: rows yt, columns x
+            for mom in (False, True):
+                got = kernels.pair_stats(yt, fy, my, x, fx, mx, ell, p, mom)
+                want = kernels.pair_stats_plain(yt, fy, my, x, fx, mx, ell,
+                                                p, mom)
+                torch.cuda.synchronize()
+                if float(got[1]) != float(want[1]) or (
+                        mom and int(got[3]) != int(want[3])):
+                    raise AssertionError(
+                        f"pair_stats counts {float(got[1])}/"
+                        f"{float(want[1])} (CAP {cap}, ell {ell}, "
+                        f"moments {mom})")
+                err = check_close("pair_stats value", got[0], want[0],
+                                  1e-4, 0.0)
+                if mom:
+                    scale = max(float(want[2].abs().max()), 1.0)
+                    err = max(err, check_close(
+                        "pair_stats G", got[2] / scale, want[2] / scale, 0.0,
+                        1e-5) * scale)
+                report["pair_stats"]["max_abs_err"] = max(
+                    report["pair_stats"]["max_abs_err"], err)
+                print(f"pair_stats CAP {cap} ell {ell} moments {mom}: count "
+                      f"{int(got[1])} equal, max |err| {err:.3e}", flush=True)
+
         if cap != CAPS[0]:
             continue
         # times at the main path's capacity, at both ells
@@ -245,14 +304,31 @@ def kernel_checks(clouds, p, report):
             ops, nbytes = suite_counts(x, fx, mx, y, fy, my, yt, ell, p)
             b, by = bound_ms(ops, nbytes)
             _record(report["ip_suite"], ell, t_k, t_p, b, by, ops)
+            # pair stats: the six calls without moments are the main ones;
+            # the two with moments are recorded beside them
+            for mom in (True, False):
+                t_k = cuda_time_ms(lambda: kernels.pair_stats_cuda(
+                    yt, fy, my, x, fx, mx, ell_t, p, mom))
+                t_p = cuda_time_ms(lambda: kernels.pair_stats_plain(
+                    yt, fy, my, x, fx, mx, ell_t, p, mom), reps=3)
+                ops, nbytes = pair_stats_counts(yt, fy, my, x, fx, mx, ell,
+                                                p, mom)
+                b, by = bound_ms(ops, nbytes)
+                _record(report["pair_stats"], ell, t_k, t_p, b, by, ops,
+                        "moments" if mom else "")
 
 
-def _record(entry, ell, t_k, t_p, b, by, ops):
-    print(f"{entry['name']} CAP {CAPS[0]} ell {ell}: kernel {t_k:.4f} ms, "
-          f"plain {t_p:.4f} ms, bound {b:.4f} ms ({by}, {ops:.4g} ops), "
+def _record(entry, ell, t_k, t_p, b, by, ops, mode=""):
+    """Print one timing; keep it under times_by_ell (mode-suffixed keys for
+    a second mode) and as the entry's headline at the first ell without a
+    mode."""
+    tag = f" {mode}" if mode else ""
+    print(f"{entry['name']}{tag} CAP {CAPS[0]} ell {ell}: kernel {t_k:.4f} "
+          f"ms, plain {t_p:.4f} ms, bound {b:.4f} ms ({by}, {ops:.4g} ops), "
           f"{b / t_k:.1%} of bound", flush=True)
-    entry["times_by_ell"][str(ell)] = dict(ms=t_k, plain_ms=t_p, bound_ms=b)
-    if ell == ELLS[0]:
+    entry["times_by_ell"][str(ell) + (f" {mode}" if mode else "")] = dict(
+        ms=t_k, plain_ms=t_p, bound_ms=b)
+    if ell == ELLS[0] and not mode:
         entry.update(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by)
 
 
@@ -352,6 +428,70 @@ def tracking(folder, gt, report, card):
         raise AssertionError(f"position error {err.max()} m >= 0.05 m")
 
 
+def loop_trajectory(n_out):
+    """World->camera transforms walking out n_out steps, then back."""
+    import numpy as np
+    import torch
+    from cvo_slam_tpu_torch.ops import se3
+    step = se3.exp_se3(torch.tensor(SLAM_STEP, dtype=torch.float64)).numpy()
+    Gs = [np.eye(4)]
+    for _ in range(n_out):
+        Gs.append(step @ Gs[-1])
+    for _ in range(n_out):
+        Gs.append(np.linalg.inv(step) @ Gs[-1])
+    return Gs
+
+
+def slam(folder, report, card, device="cuda", cam=None, cfg=None):
+    """Phase 4: the whole SLAM system on an out-and-back sequence, counters
+    set to 0 just before run() and read just after."""
+    import numpy as np
+    from cvo_slam_tpu_torch.app import run_slam
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.data import synthetic, tum
+    cam = cam or CAMERA_PRESETS["TUM1"]
+    cfg = cfg or SlamConfig.default_shipped()
+    Gs = loop_trajectory(SLAM_OUT)
+    gt = synthetic.make_sequence(folder, cam, trajectory=Gs)
+    gt_ts = [f"{1000.0 + 0.05 * k:.6f}" for k in range(len(Gs))]
+    kernels.reset_launch_counts()
+    stats = run_slam.run(folder, "associate.txt", cam, cfg, device=device)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    report["pair_stats"]["launches"] = launches["pair_stats"]
+
+    ts, poses = tum.read_trajectory(os.path.join(folder,
+                                                 "Tracking_trajectory.txt"))
+    ate_track = tum.ate_rmse(gt_ts, gt, ts, poses)
+    ts, poses = tum.read_trajectory(os.path.join(folder,
+                                                 "SLAM_trajectory.txt"))
+    ate_slam = tum.ate_rmse(gt_ts, gt, ts, poses)
+    with open(os.path.join(folder, "loop_closure.txt")) as f:
+        rows = [line.split() for line in f if line.strip()]
+    stages = {k: round(v["mean"], 1)
+              for k, v in stats.get("keyframe_path_ms", {}).items()}
+    print(f"SLAM {stats['frames']} frames {cam.width}x{cam.height} CAP "
+          f"{cfg.frontend.cloud_capacity} on {card}: {stats['keyframes']} "
+          f"keyframes, {stats.get('lc_rounds', 0)} loop-closure rounds, "
+          f"{stats.get('lc_candidates', 0)} candidates verified, "
+          f"{stats['lc_num']} loop-closure edges accepted; launches "
+          f"{launches}; ms per keyframe event by stage {stages}; "
+          f"loop-closure sub-stages "
+          f"{ {k: round(v['mean'], 1) for k, v in stats.get('lc_stage_ms', {}).items()} }; "
+          f"wall {stats['wall_s']:.1f} s; tracking ATE {ate_track:.4f} m, "
+          f"SLAM ATE {ate_slam:.4f} m", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched by SLAM: {launches}")
+    if stats["lc_num"] < 1:
+        raise AssertionError("no loop-closure edge was accepted")
+    if any(len(r) != 62 for r in rows):
+        raise AssertionError(f"loop_closure.txt rows of "
+                             f"{sorted({len(r) for r in rows})} fields")
+    if not ate_slam < 0.05:
+        raise AssertionError(f"SLAM ATE {ate_slam} m >= 0.05 m")
+    return stats
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cvo_slam_tpu_torch")):
         return fail("cvo_slam_tpu_torch/ not found beside chip_smoke.py: run "
@@ -408,9 +548,11 @@ def main() -> int:
             clouds[cap] = [host_cloud_tensors(pc, "cuda") for pc in pcs]
         kernel_checks(clouds, p, report)
 
-        # -- phase 3: tracking-only SLAM through the CLI's run(), then one
-        #    frame under the profiler (after, so it cannot slow phase 3)
+        # -- phase 3: tracking-only SLAM through the CLI's run(); phase 4:
+        #    the whole system; then one frame under the profiler (after, so
+        #    it cannot slow phases 3-4)
         tracking(folder, gt, report, card)
+        slam(os.path.join(folder, "slam"), report, card)
         profile_frame(clouds, p)
 
     for entry in report.values():

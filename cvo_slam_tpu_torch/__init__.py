@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of cvo_slam_tpu: RGB-D CVO tracking on an NVIDIA GPU.
+"""PyTorch/CUDA port of cvo_slam_tpu: RGB-D CVO-SLAM on an NVIDIA GPU.
 
-Plain tensor code is PyTorch; the two pairwise passes of the align loop and
-of compute_innerproduct are hand-written CUDA kernels (cvo/kernels.py,
-csrc/). Entry points default to device="cuda" and raise if CUDA is absent.
+Tracking plus the SLAM backend (keyframe graph, ORB + BoW loop closure,
+windowed and final bundle adjustment). Plain tensor code is PyTorch; the
+pairwise passes of the align loop, of compute_innerproduct and of the
+loop-closure scoring are hand-written CUDA kernels (cvo/kernels.py, csrc/).
+Entry points default to device="cuda" and raise if CUDA is absent.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,189 @@
+"""Loop-closure detection: BoW top-10 candidates -> ORB/RANSAC prior -> CVO
+verification (port of cvo_slam_tpu.backend.loop_closure).
+
+Re-expression of reference detectLoopClousure_top10
+(reference src/keyframe_graph.cpp:601-746): score the new keyframe
+against every earlier keyframe except the last two, visit the 10 best; for
+each candidate run the ORB matcher's RANSAC pipeline for an initial
+transform, re-register with a fresh CVO state seeded with that prior
+(reset_initial(lc_prior) -> set_pcd(ref cloud) -> match_keyframe(cand
+cloud)) and accept iff the CVO posterior inner product exceeds the
+pre/prior/lc-prior inner products and cos_angle >= 0.1 (:703-714). Accepted
+edges go into the global graph with the eigenvalue-floored Hessian as
+information.
+
+Phases, in the reference's per-candidate order: (1) host ORB matching +
+RANSAC with its landmark side effects, candidate by candidate; (2) the
+device verification of every passing candidate (cvo.engine.lc_verify_batch:
+align on the moment kernel, then compute_innerproduct_lc on the pair-stats
+kernel); (3) host accept tests and edge insertion. Phase 2 depends on
+nothing phase 1 mutates, so the results equal the interleaved reference
+loop. Each round records its stage costs in graph.lc_stage_ms.
+
+Reference quirks kept: the pnpransac prior transform is never assigned in
+the active code (uninitialized in C++); the identity is passed. The
+per-round covisibility state feeds GetBestCovisibleKeyframeList at the end.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+
+from ..config import CameraConfig, SlamConfig
+from ..cvo import engine
+from ..features.bow import Vocabulary
+from ..features.matcher import Matcher
+from ..tracking.types import Keyframe, TrackingResult
+
+
+def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
+    """The loop detector KeyframeGraph calls per keyframe event; the CVO
+    verification runs where the keyframes' clouds live."""
+    matcher = Matcher(cam, cfg, scale_factor=cam.orb_scale_factor,
+                      n_levels=cam.orb_n_levels)
+    refresh_thread = [None]
+
+    def _refresh_stale(keyframes):
+        """Re-transform BoW vectors built under an older vocabulary (the
+        growing vocabulary retrains as the map expands; see features.bow)."""
+        if vocabulary is None:
+            return
+        ver = getattr(vocabulary, "version", 0)
+        for kf in keyframes:
+            if kf.descriptors is not None and len(kf.descriptors) \
+                    and getattr(kf, "bow_version", 0) != ver:
+                kf.bow_vec, kf.feat_vec = vocabulary.transform(
+                    kf.descriptors, levelsup=4)
+                kf.bow_version = ver
+
+    def prefetch(graph):
+        """Start the post-retrain BoW refresh on a worker thread at the top
+        of a keyframe event, so it overlaps the local-map optimize."""
+        if vocabulary is None or refresh_thread[0] is not None:
+            return
+        kfs = list(graph.keyframes())
+        ver = getattr(vocabulary, "version", 0)
+        if not any(kf.descriptors is not None and len(kf.descriptors)
+                   and getattr(kf, "bow_version", 0) != ver for kf in kfs):
+            return
+        t = threading.Thread(target=_refresh_stale, args=(kfs,), daemon=True)
+        t.start()
+        refresh_thread[0] = t
+
+    def detect(graph, reference: Keyframe):
+        if not hasattr(graph, "matcher"):
+            graph.matcher = matcher
+        if not hasattr(graph, "next_mappoint_id"):
+            graph.next_mappoint_id = [1]   # odd ids (keyframe_graph.cpp:94)
+
+        keyframes = graph.keyframes()
+        farthest = reference.id
+        if len(keyframes) <= 2 or reference.bow_vec is None:
+            return 0, farthest
+
+        # stage costs in ms (refresh = BoW re-transform join; score = BoW
+        # scoring; ransac = host ORB matching + RANSAC + landmark
+        # bookkeeping; verify = the CVO re-registrations on the device)
+        sub = getattr(graph, "lc_stage_ms", None)
+        if sub is None:
+            sub = graph.lc_stage_ms = []
+        row = {}
+        sub.append(row)
+        t0 = time.perf_counter()
+
+        if refresh_thread[0] is not None:
+            refresh_thread[0].join()
+            refresh_thread[0] = None
+        _refresh_stale(keyframes)   # no-op when prefetch already ran
+        t1 = time.perf_counter()
+        row["refresh"] = (t1 - t0) * 1e3
+
+        matcher.reset_round()
+        scored = []
+        for i in range(len(keyframes) - 2):
+            cand = keyframes[i]
+            if cand.bow_vec is None:
+                continue
+            scored.append((Vocabulary.score(reference.bow_vec, cand.bow_vec),
+                           i))
+        scored.sort(reverse=True)
+        t2 = time.perf_counter()
+        row["score"] = (t2 - t1) * 1e3
+
+        # phase 1 (host): ORB matching + RANSAC prior per candidate in
+        # BoW-score order (landmark / covisibility side effects are
+        # sequential in the reference, keyframe_graph.cpp:628-684)
+        cands = []
+        for s, i in scored[:10]:
+            cand = keyframes[i]
+            graph.log(f"Checking keyframe {cand.id} with BoW score {s:.4f}")
+            ok, matches, T_cr = matcher.get_initial_transformation(
+                reference, cand, graph.map_points, graph.next_mappoint_id)
+            if not ok:
+                continue
+            prior = np.linalg.inv(reference.pose) @ cand.pose
+            cands.append((cand, float(s), matches,
+                          np.asarray(T_cr, np.float64), prior))
+        t3 = time.perf_counter()
+        row["ransac"] = (t3 - t2) * 1e3
+
+        # phase 2 (device): each candidate re-registered from its prior,
+        # then scored (compute_innerproduct_lc)
+        inv = [np.linalg.inv(c[3]) for c in cands]
+        p = cfg.cvo
+        out = engine.lc_verify_batch(
+            reference.cloud, [c[0].cloud for c in cands],
+            [m[:3, :3].astype(np.float32) for m in inv],
+            [m[:3, 3].astype(np.float32) for m in inv],
+            [np.float32(p.ell_init)] * len(cands),
+            [c[4].astype(np.float32) for c in cands],
+            [c[3].astype(np.float32) for c in cands], p)
+        verified = [(np.asarray(res.transform.cpu().numpy(), np.float64),
+                     engine.to_host(lc)) for res, lc in out]
+        row["verify"] = (time.perf_counter() - t3) * 1e3
+        row["n_cands"] = len(cands)
+
+        # phase 3 (host): accept tests + edge insertion in candidate order
+        # (keyframe_graph.cpp:703-746)
+        new_lc = 0
+        for (cand, s, matches, lc_prior, prior), (T, lc) in zip(cands,
+                                                                verified):
+            result = TrackingResult()
+            result.score = s
+            result.matches = matches
+            result.lc_prior = lc_prior
+            result.lc_prior_pnpransac = np.eye(4)
+            result.transform = T
+            result.inn_prior = float(lc["inn_prior"])
+            result.inn_lc_prior = float(lc["inn_lc_prior"])
+            result.inn_pre = float(lc["inn_lc_pre"])
+            result.inn_post = float(lc["inn_lc_post"])
+            result.inn_fixed_pcd = float(lc["inn_fixed"])
+            result.inn_moving_pcd = float(lc["inn_moving"])
+            result.cos_angle = float(lc["cos_angle"])
+            result.inliers_svd = int(lc["inliers_svd"])
+            result.inliers_pnpransac = int(lc["inliers_pnpransac"])
+            result.post_hessian = np.asarray(lc["post_hessian"], np.float64)
+            result.information = result.post_hessian.copy()
+
+            if (result.inn_post <= result.inn_pre
+                    or result.inn_post <= result.inn_lc_prior
+                    or result.inn_post <= result.inn_prior
+                    or result.cos_angle < 0.1):
+                graph.log("Final transformation: Reject (inner products)")
+                continue
+            graph.log(f"Accept loop-closure between keyframe {reference.id} "
+                      f"and {cand.id}")
+            if cand.id < farthest:
+                farthest = cand.id
+            graph.insert_loop_closure(reference, cand, result)
+            new_lc += 1
+
+        matcher.best_covisible(reference)
+        return new_lc, farthest
+
+    detect.prefetch = prefetch
+    return detect

@@ -15,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 
+import numpy as np
+
 
 @dataclass(frozen=True)
 class CameraConfig:
@@ -229,3 +231,15 @@ def from_reference(obj):
         kw["cvo"] = CvoParams(**kw["cvo"])
         kw["frontend"] = FrontendParams(**kw["frontend"])
     return cls(**kw)
+
+
+def arrays_from_reference(state) -> dict:
+    """The JAX package's backend state as host arrays, so both packages'
+    solvers can be fed the same problem: a pose graph (backend.lm.PoseGraph,
+    any NamedTuple) becomes {field: numpy array}; a dict of windowed-BA
+    arguments (backend.ba.optimize_ba's) keeps its keys with numpy values.
+    Each array is a writable copy; the argument is only read through its
+    fields or keys."""
+    if hasattr(state, "_fields"):
+        return {f: np.array(getattr(state, f)) for f in state._fields}
+    return {k: np.array(v) for k, v in state.items()}

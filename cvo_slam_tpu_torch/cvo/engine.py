@@ -9,7 +9,10 @@
     per chunk of ALIGN_CHUNK iterations, and the iteration count is the same
     as a loop that stops at once.
   * each iteration runs the moment kernel (cvo.kernels.moment_flow_step);
-    `compute_innerproduct` runs the suite kernel (cvo.kernels.ip_suite).
+    `compute_innerproduct` runs the suite kernel (cvo.kernels.ip_suite);
+    `compute_innerproduct_lc` (cvo.cpp:505-561) runs the pair-stats kernel
+    (cvo.kernels.pair_stats) 6 + 2 times, and `lc_verify_batch` re-registers
+    and scores each loop-closure candidate in turn.
   * the Hessian's eigenvalue floor (se3_Hessian, cvo.cpp:620-759) is
     `hessian_postprocess`.
 
@@ -213,6 +216,67 @@ def frame_step(prev: PointCloud, kf: PointCloud, cur: PointCloud,
     return res1, ip1, res2, ip2, guess
 
 
+def compute_innerproduct_lc(fixed: PointCloud, moving: PointCloud,
+                            prior_tran, lc_prior_tran, lc_prior_tran_2,
+                            lc_tran, ell, p: CvoParams):
+    """Reference compute_innerproduct_lc (cvo.cpp:505-561): inner products
+    of the moving cloud under four transforms against the fixed cloud, both
+    self norms, and the post-Hessian of the CVO result with the inlier
+    counts under it and under the second (pnpransac) prior. Six pair-stats
+    launches without moments and two with them, as the reference's separate
+    calls (the second Hessian only yields its inlier count)."""
+    dev = fixed.device
+    x, fx, mx = fixed.positions, fixed.features, fixed.mask
+    y, fy, my = moving.positions, moving.features, moving.mask
+    ell = _f32(ell, dev).reshape(())
+
+    def moved(tran):
+        return se3.transform_points(_f32(tran, dev), y).contiguous()
+
+    def ip(a, fa, ma, b, fb, mb, with_moments=False):
+        return kernels.pair_stats(a, fa, ma, b, fb, mb, ell, p, with_moments)
+
+    y_lc = moved(lc_tran)
+    prior_v = ip(moved(prior_tran), fy, my, x, fx, mx)[0]
+    lcp_v = ip(moved(lc_prior_tran), fy, my, x, fx, mx)[0]
+    pre_v = ip(y, fy, my, x, fx, mx)[0]
+    post_v = ip(y_lc, fy, my, x, fx, mx)[0]
+    fixed_v = ip(x, fx, mx, x, fx, mx)[0]
+    moving_v = ip(y, fy, my, y, fy, my)[0]
+    _, _, G, inliers_svd = ip(y_lc, fy, my, x, fx, mx, True)
+    inliers_pnp = ip(moved(lc_prior_tran_2), fy, my, x, fx, mx, True)[3]
+    H_raw = pairwise.assemble_hessian(G, ell)
+    cos_angle = post_v / (torch.sqrt(fixed_v) * torch.sqrt(moving_v))
+    post_hessian = hessian_postprocess(H_raw, inliers_svd, p)
+    return dict(inn_prior=prior_v, inn_lc_prior=lcp_v, inn_lc_pre=pre_v,
+                inn_lc_post=post_v, inn_fixed=fixed_v, inn_moving=moving_v,
+                cos_angle=cos_angle, post_hessian=post_hessian,
+                inliers_svd=inliers_svd, inliers_pnpransac=inliers_pnp)
+
+
+def lc_verify_batch(fixed: PointCloud, movings, R0, T0, ell0, priors,
+                    lc_priors, p: CvoParams):
+    """Every loop-closure candidate verification of one detection round
+    (keyframe_graph.cpp:693-714: reset_initial(lc_prior) -> set_pcd(ref) ->
+    match_keyframe(cand) -> compute_innerproduct_lc), one candidate after
+    the other against the shared reference cloud. The JAX package vmaps the
+    candidates with converged lanes frozen, so each lane equals its solo
+    run: this loop computes the same. The pnpransac prior is the identity
+    (never assigned in the reference's active code).
+
+    movings: a sequence of PointCloud; R0/T0/ell0/priors/lc_priors: one
+    entry per candidate. Returns [(AlignResult, lc dict)] in order."""
+    eye4 = np.eye(4, dtype=np.float32)
+    out = []
+    for moving, R0_i, T0_i, ell0_i, prior, lc_prior in zip(
+            movings, R0, T0, ell0, priors, lc_priors):
+        res = align(fixed, moving, R0_i, T0_i, ell0_i, p)
+        lc = compute_innerproduct_lc(fixed, moving, prior, lc_prior, eye4,
+                                     res.transform, res.ell, p)
+        out.append((res, lc))
+    return out
+
+
 def to_host(tree):
     """Device tensors of nested tuples / dicts -> numpy (one copy each)."""
     if isinstance(tree, dict):
@@ -296,6 +360,14 @@ class Cvo:
         return to_host(compute_innerproduct(
             self.fixed, self.moving, np.asarray(tran, np.float32),
             np.float32(self.ell), self.params))
+
+    def compute_innerproduct_lc(self, prior, lc_prior, lc_prior_2, lc_tran):
+        return to_host(compute_innerproduct_lc(
+            self.fixed, self.moving, np.asarray(prior, np.float32),
+            np.asarray(lc_prior, np.float32),
+            np.asarray(lc_prior_2, np.float32),
+            np.asarray(lc_tran, np.float32), np.float32(self.ell),
+            self.params))
 
     # -- state plumbing (cvo.cpp:578-618)
     def update_fixed_pcd(self):

@@ -1,6 +1,6 @@
-"""The two pairwise passes of tracking: hand-written CUDA kernels
-(csrc/moment_flow_step.cu, csrc/ip_suite.cu), each beside its plain
-PyTorch version.
+"""The pairwise passes of tracking and loop-closure verification:
+hand-written CUDA kernels (csrc/moment_flow_step.cu, csrc/ip_suite.cu), each
+beside its plain PyTorch version.
 
   * `moment_flow_step`: one align iteration (cvo.cpp:187-334). The kernel
     computes the moment matrix Mom (M, 35) and the kept-pair count nnz; the
@@ -9,6 +9,10 @@ PyTorch version.
   * `ip_suite`: the pairwise work of compute_innerproduct (cvo.cpp:475-503):
     four gated inner products with their pair counts and the 13x13 Hessian
     moment matrix G.
+  * `pair_stats`: one gated inner product of a cloud pair with its pair
+    count and, on request, the Hessian moments G (function_inner_product
+    and se3_Hessian, cvo.cpp:388-459, :620-759), the single-pair-set mode
+    of the suite kernel; compute_innerproduct_lc launches it 6 + 2 times.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel (building it on first use) or raises. Each
@@ -42,7 +46,9 @@ MOMENT = KernelInfo("moment_flow_step", "moment_flow_step.cu",
                     "cvo_slam_tpu/cvo/pallas_kernels.py:973")
 IP_SUITE = KernelInfo("ip_suite", "ip_suite.cu",
                       "cvo_slam_tpu/cvo/pallas_kernels.py:802")
-KERNELS = (MOMENT, IP_SUITE)
+PAIR_STATS = KernelInfo("pair_stats", "ip_suite.cu",
+                        "cvo_slam_tpu/cvo/pallas_kernels.py:418")
+KERNELS = (MOMENT, IP_SUITE, PAIR_STATS)
 
 
 def reset_launch_counts():
@@ -238,3 +244,66 @@ def ip_suite(x, fx, mx, y, fy, my, yt, ell, p: CvoParams):
     if x.device.type == "cuda":
         return ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p)
     raise ValueError(f"unsupported device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# pair stats of compute_innerproduct_lc (one pair set of the suite)
+# ---------------------------------------------------------------------------
+
+def pair_stats_plain(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+                     with_moments: bool = False):
+    """pairwise.pair_stats: the plain version of the pair-stats kernel."""
+    return pairwise.pair_stats(xa, fa, ma, xb, fb, mb,
+                               _as_ell(ell, xa.device), p, with_moments)
+
+
+def pair_stats_cuda(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+                    with_moments: bool = False):
+    """The CUDA pair-stats kernel: same function and tuple as
+    pair_stats_plain."""
+    dev = xa.device
+    n, m = xa.shape[0], xb.shape[0]
+    _check_cloud("row", xa, fa, ma, n, dev)
+    _check_cloud("column", xb, fb, mb, m, dev)
+    ell = _as_ell(ell, dev).contiguous()
+    lib = cuda_build.load(PAIR_STATS.source)
+    fn = lib.pair_stats_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 7)
+    row_blocks = -(-n // _TILE)
+    sum_part = torch.empty((N_CHUNKS * row_blocks, 4), dtype=torch.float32,
+                           device=dev)
+    cnt_part = torch.empty((N_CHUNKS * row_blocks, 4), dtype=torch.int32,
+                           device=dev)
+    wu_part = torch.empty((N_CHUNKS, 13, n) if with_moments else (1,),
+                          dtype=torch.float32, device=dev)
+    g_part = torch.empty((row_blocks, 169) if with_moments else (1,),
+                         dtype=torch.float32, device=dev)
+    out_f = torch.empty((173,), dtype=torch.float32, device=dev)
+    out_n = torch.empty((4,), dtype=torch.int32, device=dev)
+    err = fn(_ptr(xa), _ptr(fa), _ptr(ma), _ptr(xb), _ptr(fb), _ptr(mb),
+             _ptr(ell), n, m, N_CHUNKS, int(with_moments),
+             pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
+             p.sigma * p.sigma, p.c_sigma * p.c_sigma,
+             2.0 * p.c_ell * p.c_ell,
+             _ptr(sum_part), _ptr(cnt_part), _ptr(wu_part), _ptr(g_part),
+             _ptr(out_f), _ptr(out_n), _stream(dev))
+    _raise_on(err, PAIR_STATS.name)
+    PAIR_STATS.launches += 1
+    count = out_n[0]
+    num = torch.where(count == 0, torch.ones_like(count), count).float()
+    if not with_moments:
+        return out_f[169], num
+    return out_f[169], num, out_f[:169].reshape(13, 13), count
+
+
+def pair_stats(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+               with_moments: bool = False):
+    """(value, num) of the gated inner product of rows xa/fa/ma against
+    columns xb/fb/mb, and with `with_moments` also (G (13, 13), inliers)."""
+    if xa.device.type == "cpu":
+        return pair_stats_plain(xa, fa, ma, xb, fb, mb, ell, p, with_moments)
+    if xa.device.type == "cuda":
+        return pair_stats_cuda(xa, fa, ma, xb, fb, mb, ell, p, with_moments)
+    raise ValueError(f"unsupported device {xa.device}")

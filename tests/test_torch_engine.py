@@ -150,8 +150,20 @@ def test_default_device_is_cuda():
 
 
 def test_backend_is_slice_two():
+    """Slice 2 ported the backend: the shipped configuration builds the
+    tracker with its keyframe graph, loop detector and windowed BA; what
+    slice 3 ports (the async backend) still raises, naming it."""
     from cvo_slam_tpu_torch.app import run_slam
+    from cvo_slam_tpu_torch.backend.keyframe_graph import KeyframeGraph
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    cfg = SlamConfig.default_shipped()
+    tracker = run_slam.build_tracker(CAMERA_PRESETS["TUM1"], cfg,
+                                     device="cpu")
+    assert isinstance(tracker.graph, KeyframeGraph)
+    assert tracker.graph.loop_detector is not None
+    assert tracker.graph.windowed_ba is not None
+    assert tracker.lt.keyframe_feature_hook is not None
+    with pytest.raises(NotImplementedError, match="slice 3"):
         run_slam.build_tracker(CAMERA_PRESETS["TUM1"],
-                               SlamConfig.default_shipped(), device="cpu")
+                               cfg.replace(UseMultiThreading=True),
+                               device="cpu")

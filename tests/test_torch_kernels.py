@@ -1,4 +1,4 @@
-"""Port parity, kernel layer: the plain versions of the two CUDA kernels
+"""Port parity, kernel layer: the plain versions of the CUDA kernels
 (cvo_slam_tpu_torch.cvo.kernels) against the JAX package's Pallas kernels
 (interpret mode) and their XLA twins, on the same numpy clouds (CPU).
 
@@ -152,6 +152,81 @@ def test_ip_suite_odd_capacity():
     _assert_suite(got, xla)
 
 
+def _stats_refs(arrays, ell, with_moments):
+    """The Pallas pair_stats kernel (interpret mode) on rows y, columns x."""
+    x, fx, mx, y, fy, my = [jnp.asarray(a) for a in arrays]
+    with pltpu.force_tpu_interpret_mode():
+        return pk.pair_stats(y, fy, my, x, fx, mx, jnp.float32(ell), P,
+                             with_moments=with_moments)
+
+
+def _port_stats(arrays, ell, with_moments):
+    x, fx, mx, y, fy, my = [torch.as_tensor(a) for a in arrays]
+    return kernels.pair_stats(y, fy, my, x, fx, mx, ell, TP, with_moments)
+
+
+def _assert_stats(got, want, ell):
+    """tests/test_pallas.py's bars: count exact, value rtol 1e-4, G / scale
+    atol 1e-5, the assembled H / scale atol 1e-4."""
+    got = [np.asarray(g) for g in got]
+    want = [np.asarray(w) for w in want]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    assert float(got[1]) == float(want[1]), (got[1], want[1])
+    if len(want) == 2:
+        return
+    assert int(got[3]) == int(want[3]), (got[3], want[3])
+    scale = max(np.abs(want[2]).max(), 1.0)
+    np.testing.assert_allclose(got[2] / scale, want[2] / scale, atol=1e-5)
+    H_g = tpw.assemble_hessian(torch.as_tensor(got[2]),
+                               torch.tensor(np.float32(ell))).numpy()
+    H_w = np.asarray(jpw.assemble_hessian(jnp.asarray(want[2]),
+                                          jnp.float32(ell)))
+    h_scale = max(np.abs(H_w).max(), 1.0)
+    np.testing.assert_allclose(H_g / h_scale, H_w / h_scale, atol=1e-4)
+
+
+@pytest.mark.parametrize("with_moments", [False, True])
+@pytest.mark.parametrize("ell", [0.15, 0.06])
+def test_pair_stats_parity(ell, with_moments):
+    """pair_stats_plain against the Pallas pair_stats kernel at CAP 256."""
+    arrays = _clouds(17, 256, 220, 200)
+    want = _stats_refs(arrays, ell, with_moments)
+    got = _port_stats(arrays, ell, with_moments)
+    assert int(got[1]) > 40     # the gates pass real pairs at both ell
+    _assert_stats(got, want, ell)
+
+
+@pytest.mark.parametrize("with_moments", [False, True])
+def test_pair_stats_odd_capacity(with_moments):
+    """CAP 250 with a masked tail; the Pallas side pads to 256 as
+    engine._pad128 does."""
+    arrays = _clouds(19, 250, 235, 205)
+    want = _stats_refs(_pad_to(arrays, 256), 0.1, with_moments)
+    got = _port_stats(arrays, 0.1, with_moments)
+    _assert_stats(got, want, 0.1)
+
+
+def test_pair_stats_views_match_xla():
+    """inner_product / se3_hessian_raw (views of pair_stats) against the
+    JAX package's XLA functions on the same pair."""
+    arrays = _clouds(23, 256, 210, 190)
+    x, fx, mx, y, fy, my = [jnp.asarray(a) for a in arrays]
+    tx, tfx, tmx, ty, tfy, tmy = [torch.as_tensor(a) for a in arrays]
+    ell = np.float32(0.1)
+    v_w, n_w = jpw.inner_product(y, fy, my, x, fx, mx, jnp.float32(ell), P)
+    v_g, n_g = tpw.inner_product(ty, tfy, tmy, tx, tfx, tmx,
+                                 torch.tensor(ell), TP)
+    np.testing.assert_allclose(float(v_g), float(v_w), rtol=1e-4)
+    assert float(n_g) == float(n_w)
+    H_w, i_w = jpw.se3_hessian_raw(y, fy, my, x, fx, mx, jnp.float32(ell), P)
+    H_g, i_g = tpw.se3_hessian_raw(ty, tfy, tmy, tx, tfx, tmx,
+                                   torch.tensor(ell), TP)
+    assert int(i_g) == int(i_w)
+    scale = np.abs(np.asarray(H_w)).max()
+    np.testing.assert_allclose(H_g.numpy() / scale, np.asarray(H_w) / scale,
+                               atol=1e-4)
+
+
 def test_wrappers_reject_bad_inputs():
     """A CUDA launch validates shapes, dtypes and devices before any build:
     a wrong cloud raises instead of launching."""
@@ -164,12 +239,22 @@ def test_wrappers_reject_bad_inputs():
         kernels.ip_suite_cuda(x, fx, mx.float(), y, fy, my, y, 0.1, TP)
     with pytest.raises(ValueError):
         kernels.moment_pass(x.to("meta"), y, fx, fy, mx, my, U, 0.1, TP)
+    with pytest.raises(ValueError):
+        kernels.pair_stats_cuda(y, fy, my, x[:, :2], fx, mx, 0.1, TP)
+    with pytest.raises(ValueError):
+        kernels.pair_stats(y.to("meta"), fy, my, x, fx, mx, 0.1, TP)
 
 
-def test_cuda_kernels_match_plain():
-    """On a card: both kernels against their plain versions (CAP 250)."""
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check")
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain():
+    """On a card: the moment and suite kernels against their plain versions
+    (CAP 250)."""
+    _need_card()
     arrays, yt = _suite_inputs(13, 250, 240, 190)
     x, fx, mx, y, fy, my = [torch.as_tensor(a).cuda() for a in arrays]
     center, U = tpw.step_moment_basis(x, mx)
@@ -184,3 +269,22 @@ def test_cuda_kernels_match_plain():
         got = kernels.ip_suite(x, fx, mx, y, fy, my, ytc, ell, TP)
         want = kernels.ip_suite_plain(x, fx, mx, y, fy, my, ytc, ell, TP)
         _assert_suite([g.cpu() for g in got], [w.cpu() for w in want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [256, 250])
+def test_pair_stats_cuda_matches_plain(cap):
+    """On a card: the pair-stats kernel against its plain version, with
+    and without moments, at both ells, with the CPU parity bars."""
+    _need_card()
+    arrays, yt = _suite_inputs(29, cap, 230, 200)
+    x, fx, mx, _, fy, my = [torch.as_tensor(a).cuda() for a in arrays]
+    ytc = torch.as_tensor(yt).cuda()
+    for ell in (0.15, 0.06):
+        for with_moments in (False, True):
+            got = kernels.pair_stats(ytc, fy, my, x, fx, mx, ell, TP,
+                                     with_moments)
+            want = kernels.pair_stats_plain(ytc, fy, my, x, fx, mx, ell, TP,
+                                            with_moments)
+            _assert_stats([g.cpu() for g in got], [w.cpu() for w in want],
+                          ell)
