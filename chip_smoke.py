@@ -21,12 +21,30 @@ Phases; any failure exits non-zero:
      evaluation of the same Mom). Times by CUDA events (median of 5 runs
      of 10 launches) beside the plain version's time and the bound;
      The pair-stats kernel is held the same way, with and without
-     moments: value and count, G and inliers;
+     moments: value and count, G and inliers. The per-pair align
+     kernels: flow_and_step, flow and step_coeffs (csrc/flow_step.cu)
+     against their plain versions at the same capacities and ells, nnz
+     exact, omega and v rtol 2e-4 / atol 1e-6, B, C, D, E rtol 2e-3 (the
+     bar of tests/test_pallas.py); align_fused (csrc/align_fused.cu)
+     against align_fused_plain on frames 0 -> 1 from the identity at ell
+     0.15: ell equal, transform within 1e-4 (metres and radians), the
+     iteration count within ALIGN_ITERS_SPREAD (ROADMAP queue 3: counts
+     are not bit-stable across f32 reduction orders; the moment-form
+     align's count on the same pair is printed beside them). flow and
+     step_coeffs lie on no path (only the JAX package's tests call
+     them): their launches are those of these checks, and each
+     flow_and_step launch of the main path runs both passes once more;
   3. tracking: tracking-only SLAM at 640x480 / CAP 3072 on a 16-frame
      synthetic sequence through app.run_slam.run(device="cuda"), with the
      launch counters set to 0 just before and read just after; checks one
      finite pose per frame, both counters non-zero (the suite exactly one
      launch per alignment) and the position error against the ground truth
+     below 0.05 m;
+  3b. the same tracking with CVO_SLAM_BACKEND=pallas: align_fused exactly
+     once per alignment, the moment kernel never, the suite once per
+     alignment, position error below 0.05 m; ms/frame beside phase 3's;
+  3c. tracking with CVO_SLAM_BACKEND=pallas_iter on the first 8 frames:
+     flow_and_step at least once per align iteration, position error
      below 0.05 m;
   4. SLAM: the whole system (SlamConfig.default_shipped(), OnlyTracking
      False: tracking, keyframe graph, ORB + BoW, loop closure, windowed BA,
@@ -37,18 +55,31 @@ Phases; any failure exits non-zero:
      the loop-closure verification), at least one loop-closure edge was
      accepted, every loop_closure.txt row has 62 fields and the SLAM ATE is
      below 0.05 m;
-  5. one engine.frame_step under torch.profiler: device busy share and
-     kernel launches per align iteration;
+  4b. the same walk with CVO_SLAM_BACKEND=pallas: the same checks, the
+     moment kernel never launched, and align_fused launched once per
+     tracking alignment plus once per verified loop-closure candidate;
+     the keyframe-path stages beside phase 4's;
+  4c. app.run_odometry on the 16-frame sequence under pallas: 15 finite
+     poses, align_fused launched 15 times; ms/frame;
+  5. one engine.frame_step under torch.profiler on each backend: device
+     busy share and kernel launches per frame and per align iteration;
   6. a JSON line with every kernel's numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 The bound of a kernel is the larger of operations / 67 TFLOP/s (fp32 on
 the CUDA cores of an H100 SXM at 700 W) and bytes / 3.35 TB/s, with the
-operations counted from this run's data (pairs inside each gate).
+operations counted from this run's data (pairs inside each gate). The
+per-pair align kernels need the gate sweep once per iteration (the kept
+pairs can be carried from one pass to the next), so it is counted once per
+flow_and_step call, beside each pass's work on the kept pairs. For
+align_fused, that count is taken at every iteration of the plain version's
+run on the same pair (its poses and ells), averaged, and multiplied by the
+iterations the kernel evaluated.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -68,6 +99,18 @@ SLAM_STEP = (0.006, -0.009, 0.0045, 0.015, -0.009, 0.012)
 CAPS = (3072, 3000)
 ELLS = (0.15, 0.06)
 TWIST = (0.02, -0.01, 0.03, 0.05, 0.02, -0.04)   # post transform of the suite
+ITER_FRAMES = 8            # length of the pallas_iter tracking phase
+# align_fused against its plain version: iteration counts may differ by up
+# to this many (measured at CAP 3072 on an NVIDIA H100 80GB HBM3: 37 vs 40
+# on this script's frames 0 -> 1; see ROADMAP queue 3)
+ALIGN_ITERS_SPREAD = 3
+# kernels on no path of the JAX package (only its tests call them): their
+# launches are those of the phase-2 checks
+CHECK_ONLY = ("flow", "step_coeffs")
+# the port's CUDA kernels as torch.profiler names them
+OUR_KERNELS = ("moment_pass", "moment_reduce", "suite_", "pair_stats_pass",
+               "flow_pass", "step_pass", "flow_finalize", "step_finalize",
+               "align_kernel")
 
 
 def fail(msg: str) -> int:
@@ -174,6 +217,33 @@ def pair_stats_counts(xa, fa, ma, xb, fb, mb, ell, p, with_moments):
     n, m = xa.shape[0], xb.shape[0]
     nbytes = (n + m) * ((3 + 5) * 4 + 1) + 4 \
         + ((169 + 1) * 4 + 4 if with_moments else 2 * 4)
+    return ops, nbytes
+
+
+def flow_step_counts(x, fx, mx, y, fy, my, ell, p, passes=("flow", "step")):
+    """Operations of the per-pair passes (csrc/flow_step.cuh) on this data:
+    the gate sweep, once whatever the passes (the kept pairs can be carried
+    from one pass to the next): geometric distance of a valid pair 11 (an
+    FMA-chain dot, the identity, clamp, compare), colour distance of a pair
+    inside the geometric gate 15, the joint kernel of a gated pair 8; then
+    a kept pair adds 10 in the flow pass (y - x, d += a (y - x), count) and
+    67 in the step pass (four 3-dots, four subtractions, beta..epsilon, the
+    B..E polynomials and four multiply-adds). Both clouds are read once;
+    the outputs are 10 floats and 1 int."""
+    import torch
+    from cvo_slam_tpu_torch.ops import pairwise
+    valid = mx[:, None] & my[None, :]
+    d2 = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
+    geo = valid & (d2 < pairwise.d2_threshold(torch.tensor(ell), p).item())
+    d2c = ((fx[:, None, :] - fy[None, :, :]) ** 2).sum(-1)
+    gate = geo & (d2c < pairwise.d2_color_threshold(p))
+    a = (p.sigma ** 2 * p.c_sigma ** 2) * torch.exp(torch.clamp(
+        -(d2 / (2 * ell * ell) + d2c / (2 * p.c_ell ** 2)), min=-20.0))
+    n = [int(t.sum()) for t in (valid, geo, gate, gate & (a > p.sp_thres))]
+    per_kept = {"flow": 10, "step": 67}
+    ops = 11 * n[0] + 15 * n[1] + 8 * n[2] \
+        + sum(per_kept[q] for q in passes) * n[3]
+    nbytes = (x.shape[0] + y.shape[0]) * ((3 + 5) * 4 + 1) + 10 * 4 + 4
     return ops, nbytes
 
 
@@ -332,10 +402,163 @@ def _record(entry, ell, t_k, t_p, b, by, ops, mode=""):
         entry.update(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by)
 
 
-def profile_frame(clouds, p):
-    """One engine.frame_step (all device work of a tracked frame) under
-    torch.profiler: wall time, device time summed over kernels, the number
-    of kernel launches, and the two CUDA kernels' share."""
+def flow_step_checks(clouds, p, report):
+    """Phase 2, the per-pair align kernels: flow_and_step, flow and
+    step_coeffs against their plain versions; the checks' launches of
+    flow and step_coeffs (CHECK_ONLY); times at CAP 3072."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import kernels
+    kernels.reset_launch_counts()
+    for cap, (c0, c1) in clouds.items():
+        x, fx, mx = c0
+        y, fy, my = c1
+        args = (x, y, fx, fy, mx, my)
+        for ell in ELLS:
+            want = kernels.flow_and_step_plain(*args, ell, p)
+            got = kernels.flow_and_step_cuda(*args, ell, p)
+            flow = kernels.flow_cuda(*args, ell, p)
+            step = kernels.step_coeffs_cuda(*args, want[0], want[1], ell, p)
+            step_want = kernels.step_coeffs_plain(*args, want[0], want[1],
+                                                  ell, p)
+            torch.cuda.synchronize()
+            for name, n in (("flow_and_step", got[2]), ("flow", flow[2])):
+                if int(n) != int(want[2]):
+                    raise AssertionError(f"{name} nnz {int(n)} != "
+                                         f"{int(want[2])} (CAP {cap}, "
+                                         f"ell {ell})")
+            errs = {"flow_and_step": 0.0, "flow": 0.0, "step_coeffs": 0.0}
+            for name, g in (("flow_and_step", got), ("flow", flow)):
+                for q in (0, 1):
+                    errs[name] = max(errs[name], check_close(
+                        f"{name} omega, v", g[q], want[q], 2e-4, 1e-6))
+            for name, g, w in (("flow_and_step", got[3:], want[3:]),
+                               ("step_coeffs", step, step_want)):
+                for gq, wq in zip(g, w):
+                    errs[name] = max(errs[name], check_close(
+                        f"{name} B..E", gq, wq, 2e-3, 0.0))
+            for name, err in errs.items():
+                report[name]["max_abs_err"] = max(
+                    report[name]["max_abs_err"], err)
+            rel = [abs(float(g) - float(w)) / abs(float(w))
+                   for g, w in zip(got[3:], want[3:])]
+            print(f"flow_and_step / flow / step_coeffs CAP {cap} ell {ell}: "
+                  f"nnz {int(got[2])} equal; max |err| {errs}; B C D E rel "
+                  f"diff {' '.join(f'{r:.2e}' for r in rel)}", flush=True)
+    for k in (kernels.FLOW, kernels.STEP):
+        report[k.name]["launches"] = k.launches
+    (x, fx, mx), (y, fy, my) = clouds[CAPS[0]]
+    args = (x, y, fx, fy, mx, my)
+    for ell in ELLS:
+        ell_t = torch.tensor(ell, device=x.device)
+        omega, v, _ = kernels.flow_plain(*args, ell_t, p)
+        for name, kern, plain, passes in (
+                ("flow_and_step", lambda: kernels.flow_and_step_cuda(
+                    *args, ell_t, p), lambda: kernels.flow_and_step_plain(
+                    *args, ell_t, p), ("flow", "step")),
+                ("flow", lambda: kernels.flow_cuda(*args, ell_t, p),
+                 lambda: kernels.flow_plain(*args, ell_t, p), ("flow",)),
+                ("step_coeffs", lambda: kernels.step_coeffs_cuda(
+                    *args, omega, v, ell_t, p),
+                 lambda: kernels.step_coeffs_plain(
+                    *args, omega, v, ell_t, p), ("step",))):
+            t_k = cuda_time_ms(kern)
+            t_p = cuda_time_ms(plain, reps=3)
+            ops, nbytes = flow_step_counts(x, fx, mx, y, fy, my, ell, p,
+                                           passes)
+            b, by = bound_ms(ops, nbytes)
+            _record(report[name], ell, t_k, t_p, b, by, ops)
+
+
+def align_checks(clouds, p, report):
+    """Phase 2, align_fused against align_fused_plain on frames 0 -> 1 at
+    CAP 3072 from the identity at ell 0.15; time per alignment; the bound
+    over the plain run's iterations (module docstring)."""
+    import numpy as np
+    import torch
+    from cvo_slam_tpu_torch.cvo import engine, kernels
+    (x, fx, mx), (y, fy, my) = clouds[CAPS[0]]
+    dev = x.device
+    args = (x, fx, mx, y, fy, my, torch.eye(3, device=dev),
+            torch.zeros(3, device=dev), torch.tensor(ELLS[0], device=dev), p)
+    launch = {}
+    R, T, ell, iters, _ = kernels.align_fused_cuda(*args, launch_info=launch)
+    Rp, Tp, ellp, iters_p, _ = kernels.align_fused_plain(*args)
+    mom = engine.align(engine.PointCloud(x, fx, mx),
+                       engine.PointCloud(y, fy, my), args[6], args[7],
+                       ELLS[0], p, "pallas_mom")
+    torch.cuda.synchronize()
+
+    def transform(R, T):
+        Rt = R.double().T.cpu().numpy()
+        return Rt, -(Rt @ T.double().cpu().numpy())
+
+    (Ra, ta), (Rb, tb) = transform(R, T), transform(Rp, Tp)
+    D = Ra.T @ Rb
+    ang = 0.5 * float(np.linalg.norm([D[2, 1] - D[1, 2], D[0, 2] - D[2, 0],
+                                      D[1, 0] - D[0, 1]]))
+    dt = float(np.abs(ta - tb).max())
+    print(f"align_fused CAP {CAPS[0]} frames 0 -> 1 ell {ELLS[0]}: iters "
+          f"{int(iters)} (plain {int(iters_p)}, moment-form align "
+          f"{int(mom.iters)}), ell {float(ell)} (plain {float(ellp)}), "
+          f"transform |dt| {dt:.3e} m, angle {ang:.3e} rad; launch "
+          f"{launch}", flush=True)
+    if abs(int(iters) - int(iters_p)) > ALIGN_ITERS_SPREAD:
+        raise AssertionError(f"align_fused iters {int(iters)} vs plain "
+                             f"{int(iters_p)}")
+    if float(ell) != float(ellp) or dt > 1e-4 or ang > 1e-4:
+        raise AssertionError(f"align_fused: ell {float(ell)} vs "
+                             f"{float(ellp)}, |dt| {dt}, angle {ang}")
+    report["align_fused"]["max_abs_err"] = max(dt, ang)
+
+    # the bound: both passes at each iteration of the plain run
+    seen = []
+
+    def iterate(yk, ellk):
+        seen.append((yk, float(ellk)))
+        return kernels.flow_and_step_plain(x, yk, fx, fy, mx, my, ellk, p)
+
+    ref = engine.align_loop(iterate, y, *args[6:9], p)
+    seen = seen[:int(ref.iters) + 1]
+    per_iter = [flow_step_counts(x, fx, mx, yk, fy, my, ek, p)[0]
+                for yk, ek in seen]
+    n_iter = int(iters) + 1
+    ops = float(np.mean(per_iter)) * n_iter
+    nbytes = (x.shape[0] + y.shape[0]) * ((3 + 5) * 4 + 1) + 13 * 4 \
+        + 13 * 4 + 2 * 4
+    b, by = bound_ms(ops, nbytes)
+    t_k = cuda_time_ms(lambda: kernels.align_fused_cuda(*args), reps=5,
+                       trials=3)
+    t_p = cuda_time_ms(lambda: kernels.align_fused_plain(*args), reps=1,
+                       trials=3)
+    print(f"align_fused CAP {CAPS[0]}: {t_k:.4f} ms per alignment, "
+          f"{n_iter} iterations, {t_k / n_iter:.4f} ms per iteration; plain "
+          f"{t_p:.1f} ms; bound {b:.4f} ms ({by}, {ops:.4g} ops), "
+          f"{b / t_k:.1%} of bound", flush=True)
+    report["align_fused"].update(ms=t_k, plain_ms=t_p, bound_ms=b,
+                                 bound_by=by, iterations=n_iter,
+                                 ms_per_iteration=t_k / n_iter,
+                                 launch=launch)
+
+
+@contextlib.contextmanager
+def backend_env(name):
+    """CVO_SLAM_BACKEND set to `name` for the block, restored after."""
+    old = os.environ.get("CVO_SLAM_BACKEND")
+    os.environ["CVO_SLAM_BACKEND"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CVO_SLAM_BACKEND"]
+        else:
+            os.environ["CVO_SLAM_BACKEND"] = old
+
+
+def profile_frame(clouds, p, backend):
+    """One engine.frame_step (all device work of a tracked frame) on
+    `backend` under torch.profiler: wall time, device time summed over
+    kernels, the number of kernel launches, and the port's CUDA kernels'
+    share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from cvo_slam_tpu_torch.cvo import engine
@@ -345,7 +568,7 @@ def profile_frame(clouds, p):
 
     def frame():
         out = engine.frame_step(prev, prev, cur, eye3, zero3, p.ell_init,
-                                torch.eye(4).numpy(), p.ell_init, p)
+                                torch.eye(4).numpy(), p.ell_init, p, backend)
         torch.cuda.synchronize()
         return out
 
@@ -361,20 +584,20 @@ def profile_frame(clouds, p):
             d = e.time_range.elapsed_us()
             kernels_us += d
             n += 1
-            if e.name.startswith(("moment_", "suite_", "(anonymous namespace)"
-                                  "::moment", "(anonymous namespace)::suite")):
+            if any(k in e.name for k in OUR_KERNELS):
                 ours_us += d
     iters = int(res[0].iters) + int(res[2].iters) + 2
     if kernels_us == 0.0:
-        print(f"profile of one frame_step: wall {wall_ms:.1f} ms; device "
-              "time not measured (the profiler saw no CUDA kernels)",
-              flush=True)
+        print(f"profile of one frame_step ({backend}): wall {wall_ms:.1f} "
+              "ms; device time not measured (the profiler saw no CUDA "
+              "kernels)", flush=True)
         return
-    print(f"profile of one frame_step (CAP {CAPS[0]}, {iters} align "
-          f"iterations): wall {wall_ms:.1f} ms (profiler on), device kernels"
-          f" {kernels_us / 1e3:.2f} ms = {kernels_us / 1e3 / wall_ms:.1%} "
-          f"busy, {n} kernel launches ({n / iters:.0f} per iteration), the "
-          f"two CUDA kernels {ours_us / 1e3:.2f} ms", flush=True)
+    print(f"profile of one frame_step ({backend}, CAP {CAPS[0]}, {iters} "
+          f"align iterations): wall {wall_ms:.1f} ms (profiler on), device "
+          f"kernels {kernels_us / 1e3:.2f} ms = "
+          f"{kernels_us / 1e3 / wall_ms:.1%} busy, {n} kernel launches per "
+          f"frame ({n / iters:.1f} per iteration), the port's CUDA kernels "
+          f"{ours_us / 1e3:.2f} ms", flush=True)
 
 
 def host_cloud_tensors(pc, device):
@@ -383,28 +606,30 @@ def host_cloud_tensors(pc, device):
     return c.positions, c.features, c.mask
 
 
-def tracking(folder, gt, report, card):
-    """Phase 3: the main path, counters reset just before, read just after."""
+def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
+    """Phases 3, 3b, 3c: tracking-only SLAM on `backend` over the first
+    n_frames frames, counters set to 0 just before, read just after.
+    Returns the tracked frames' ms/frame."""
     import numpy as np
     from cvo_slam_tpu_torch.app import run_slam
     from cvo_slam_tpu_torch.config import SlamConfig
     from cvo_slam_tpu_torch.cvo import kernels
     from cvo_slam_tpu_torch.data import tum
     cfg = SlamConfig.default_shipped().replace(OnlyTracking=True)
-    kernels.reset_launch_counts()
-    stats = run_slam.run(folder, "associate.txt", "TUM1", cfg, device="cuda")
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    for k in kernels.KERNELS:
-        report[k.name]["launches"] = k.launches
+    with backend_env(backend):
+        kernels.reset_launch_counts()
+        stats = run_slam.run(folder, "associate.txt", "TUM1", cfg,
+                             max_frames=n_frames, device="cuda")
+        launches = {k.name: k.launches for k in kernels.KERNELS}
 
     ts, poses = tum.read_trajectory(os.path.join(folder,
                                                  "Tracking_trajectory.txt"))
-    if len(ts) != N_FRAMES or not np.isfinite(poses).all():
-        raise AssertionError(f"{len(ts)} poses for {N_FRAMES} frames, "
+    if len(ts) != n_frames or not np.isfinite(poses).all():
+        raise AssertionError(f"{len(ts)} poses for {n_frames} frames, "
                              f"finite: {np.isfinite(poses).all()}")
-    err = np.linalg.norm(poses[:, :3, 3] - gt[:N_FRAMES, :3, 3], axis=1)
-    ate = tum.ate_rmse([f"{1000.0 + 0.05 * k:.6f}" for k in range(N_FRAMES)],
-                       gt[:N_FRAMES], ts, poses)
+    err = np.linalg.norm(poses[:, :3, 3] - gt[:n_frames, :3, 3], axis=1)
+    ate = tum.ate_rmse([f"{1000.0 + 0.05 * k:.6f}" for k in range(n_frames)],
+                       gt[:n_frames], ts, poses)
     with open(os.path.join(folder, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     tracked = [r for r in rows if "odo_iters" in r]
@@ -413,19 +638,35 @@ def tracking(folder, gt, report, card):
     t_frame = [r["t_frame_s"] * 1e3 for r in tracked]
     # alignments: one bootstrap (odometry only) + two per tracked frame
     n_align = 1 + 2 * len(tracked)
-    print(f"tracking {N_FRAMES} frames 640x480 CAP 3072 on {card}: "
-          f"{np.mean(t_frame):.1f} ms/frame mean, {np.median(t_frame):.1f} "
-          f"median over {len(tracked)} tracked frames; wall {stats['wall_s']:.2f}"
-          f" s ({stats['fps']:.2f} fps incl. bootstrap and IO); "
-          f"{np.mean(iters):.1f} align iterations per alignment "
-          f"(tracked frames); launches {launches}; alignments {n_align}; "
-          f"max position error {err.max():.4f} m, ATE {ate:.4f} m", flush=True)
-    if launches["moment_flow_step"] < sum(iters) or launches["ip_suite"] \
-            != n_align:
-        raise AssertionError(f"launch counts {launches} do not cover "
-                             f"{sum(iters)} iterations / {n_align} alignments")
+    print(f"tracking ({stats['backend']}) {n_frames} frames 640x480 CAP "
+          f"3072 on {card}: {np.mean(t_frame):.1f} ms/frame mean, "
+          f"{np.median(t_frame):.1f} median over {len(tracked)} tracked "
+          f"frames; wall {stats['wall_s']:.2f} s ({stats['fps']:.2f} fps "
+          f"incl. bootstrap and IO); {np.mean(iters):.1f} align iterations "
+          f"per alignment (tracked frames); launches {launches}; alignments "
+          f"{n_align}; max position error {err.max():.4f} m, ATE {ate:.4f} m",
+          flush=True)
+    # the align kernel of the backend: at least once per iteration, or
+    # (align_fused) exactly once per alignment; the other two never
+    aligns = {"pallas_mom": "moment_flow_step",
+              "pallas_iter": "flow_and_step", "pallas": "align_fused"}
+    align = aligns[backend]
+    ok = launches["ip_suite"] == n_align and stats["backend"] == backend \
+        and all(launches[k] == 0 for k in aligns.values() if k != align)
+    if backend == "pallas":
+        ok &= launches[align] == n_align
+    else:
+        ok &= launches[align] >= sum(iters)
+    if not ok:
+        raise AssertionError(f"{backend}: launch counts {launches} do not "
+                             f"match {sum(iters)} iterations / {n_align} "
+                             f"alignments")
+    for name, n in launches.items():
+        if n and not report[name]["launches"]:
+            report[name]["launches"] = n
     if err.max() >= 0.05:
         raise AssertionError(f"position error {err.max()} m >= 0.05 m")
+    return t_frame
 
 
 def loop_trajectory(n_out):
@@ -442,9 +683,11 @@ def loop_trajectory(n_out):
     return Gs
 
 
-def slam(folder, report, card, device="cuda", cam=None, cfg=None):
-    """Phase 4: the whole SLAM system on an out-and-back sequence, counters
-    set to 0 just before run() and read just after."""
+def slam(folder, report, card, device="cuda", cam=None, cfg=None,
+         backend="pallas_mom"):
+    """Phases 4 and 4b: the whole SLAM system on an out-and-back sequence
+    on `backend`, counters set to 0 just before run() and read just
+    after."""
     import numpy as np
     from cvo_slam_tpu_torch.app import run_slam
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
@@ -455,10 +698,10 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None):
     Gs = loop_trajectory(SLAM_OUT)
     gt = synthetic.make_sequence(folder, cam, trajectory=Gs)
     gt_ts = [f"{1000.0 + 0.05 * k:.6f}" for k in range(len(Gs))]
-    kernels.reset_launch_counts()
-    stats = run_slam.run(folder, "associate.txt", cam, cfg, device=device)
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    report["pair_stats"]["launches"] = launches["pair_stats"]
+    with backend_env(backend):
+        kernels.reset_launch_counts()
+        stats = run_slam.run(folder, "associate.txt", cam, cfg, device=device)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
 
     ts, poses = tum.read_trajectory(os.path.join(folder,
                                                  "Tracking_trajectory.txt"))
@@ -470,9 +713,10 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None):
         rows = [line.split() for line in f if line.strip()]
     stages = {k: round(v["mean"], 1)
               for k, v in stats.get("keyframe_path_ms", {}).items()}
-    print(f"SLAM {stats['frames']} frames {cam.width}x{cam.height} CAP "
-          f"{cfg.frontend.cloud_capacity} on {card}: {stats['keyframes']} "
-          f"keyframes, {stats.get('lc_rounds', 0)} loop-closure rounds, "
+    print(f"SLAM ({stats['backend']}) {stats['frames']} frames "
+          f"{cam.width}x{cam.height} CAP {cfg.frontend.cloud_capacity} on "
+          f"{card}: {stats['keyframes']} keyframes, "
+          f"{stats.get('lc_rounds', 0)} loop-closure rounds, "
           f"{stats.get('lc_candidates', 0)} candidates verified, "
           f"{stats['lc_num']} loop-closure edges accepted; launches "
           f"{launches}; ms per keyframe event by stage {stages}; "
@@ -480,8 +724,22 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None):
           f"{ {k: round(v['mean'], 1) for k, v in stats.get('lc_stage_ms', {}).items()} }; "
           f"wall {stats['wall_s']:.1f} s; tracking ATE {ate_track:.4f} m, "
           f"SLAM ATE {ate_slam:.4f} m", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched by SLAM: {launches}")
+    align = "align_fused" if backend == "pallas" else "moment_flow_step"
+    used = (align, "ip_suite", "pair_stats")
+    if min(launches[k] for k in used) <= 0 or stats["backend"] != backend \
+            or any(n for k, n in launches.items() if k not in used):
+        raise AssertionError(f"{backend}: SLAM launched {launches}")
+    if backend == "pallas":
+        # frame 0 seeds, frame 1 bootstraps (one alignment), every later
+        # frame aligns twice; the rest are the loop-closure verifications
+        n_track = 1 + 2 * (stats["frames"] - 2)
+        if launches[align] - n_track != stats.get("lc_candidates", 0):
+            raise AssertionError(
+                f"align_fused launched {launches[align]} times for {n_track} "
+                f"tracking alignments and {stats.get('lc_candidates', 0)} "
+                f"loop-closure candidates")
+    if not report["pair_stats"]["launches"]:
+        report["pair_stats"]["launches"] = launches["pair_stats"]
     if stats["lc_num"] < 1:
         raise AssertionError("no loop-closure edge was accepted")
     if any(len(r) != 62 for r in rows):
@@ -492,11 +750,39 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None):
     return stats
 
 
+def odometry(folder, gt, card):
+    """Phase 4c: app.run_odometry on the tracking sequence under pallas,
+    counters set to 0 just before, read just after."""
+    import numpy as np
+    from cvo_slam_tpu_torch.app import run_odometry
+    from cvo_slam_tpu_torch.config import SlamConfig
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.data import tum
+    with backend_env("pallas"):
+        kernels.reset_launch_counts()
+        stats = run_odometry.run(folder, "associate.txt", "TUM1",
+                                 SlamConfig.default_shipped(), device="cuda")
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+    ts, poses = tum.read_trajectory(stats["trajectory"])
+    ate = tum.ate_rmse([f"{1000.0 + 0.05 * k:.6f}" for k in range(N_FRAMES)],
+                       gt[:N_FRAMES], ts, poses)
+    print(f"run_odometry ({stats['backend']}) {N_FRAMES} frames on {card}: "
+          f"{stats['mean_frame_ms']:.1f} ms/frame mean (frontend included), "
+          f"{len(ts)} poses, launches {launches}, ATE {ate:.4f} m",
+          flush=True)
+    if len(ts) != N_FRAMES - 1 or not np.isfinite(poses).all():
+        raise AssertionError(f"run_odometry wrote {len(ts)} poses, finite: "
+                             f"{np.isfinite(poses).all()}")
+    if launches["align_fused"] != N_FRAMES - 1 or stats["backend"] != "pallas":
+        raise AssertionError(f"run_odometry launches {launches}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cvo_slam_tpu_torch")):
         return fail("cvo_slam_tpu_torch/ not found beside chip_smoke.py: run "
                     "from the root of a checkout")
     sys.path.insert(0, HERE)
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this run needs a "
@@ -547,17 +833,41 @@ def main() -> int:
                   flush=True)
             clouds[cap] = [host_cloud_tensors(pc, "cuda") for pc in pcs]
         kernel_checks(clouds, p, report)
+        flow_step_checks(clouds, p, report)
+        align_checks(clouds, p, report)
 
-        # -- phase 3: tracking-only SLAM through the CLI's run(); phase 4:
-        #    the whole system; then one frame under the profiler (after, so
-        #    it cannot slow phases 3-4)
-        tracking(folder, gt, report, card)
-        slam(os.path.join(folder, "slam"), report, card)
-        profile_frame(clouds, p)
+        # -- phase 3: tracking-only SLAM through the CLI's run() on each
+        #    backend; phase 4: the whole system; phase 4c: run_odometry;
+        #    then one frame under the profiler (after, so it cannot slow
+        #    phases 3-4)
+        t_mom = tracking(folder, gt, report, card, "pallas_mom")
+        t_fused = tracking(folder, gt, report, card, "pallas")
+        print(f"ms/frame mean / median: pallas_mom {np.mean(t_mom):.1f} / "
+              f"{np.median(t_mom):.1f}, pallas {np.mean(t_fused):.1f} / "
+              f"{np.median(t_fused):.1f}", flush=True)
+        tracking(folder, gt, report, card, "pallas_iter", ITER_FRAMES)
+        s_mom = slam(os.path.join(folder, "slam"), report, card)
+        s_fused = slam(os.path.join(folder, "slam"), report, card,
+                       backend="pallas")
+        for name, st in (("pallas_mom", s_mom), ("pallas", s_fused)):
+            print(f"keyframe path ms per event ({name}): "
+                  f"{ {k: round(v['mean'], 1) for k, v in st.get('keyframe_path_ms', {}).items()} }, "
+                  f"verify per round "
+                  f"{round(st['lc_stage_ms']['verify']['mean'], 1) if 'lc_stage_ms' in st else None}",
+                  flush=True)
+        odometry(folder, gt, card)
+        for backend in ("pallas_mom", "pallas", "pallas_iter"):
+            profile_frame(clouds, p, backend)
 
     for entry in report.values():
         if entry["launches"] <= 0:
-            return fail(f"{entry['name']} was not launched on the main path")
+            return fail(f"{entry['name']} was not launched " + (
+                "by its checks" if entry["name"] in CHECK_ONLY
+                else "on the main path"))
+    for name in CHECK_ONLY:
+        report[name]["launches_from"] = "phase-2 checks"
+        report[name]["passes_in_flow_and_step"] = \
+            report["flow_and_step"]["launches"]
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {

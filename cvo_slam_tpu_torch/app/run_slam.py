@@ -77,9 +77,11 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
         max_frames: int = 0, verbose: bool = False, device="cuda",
         vocabulary_path: str = "", mesh_devices: int = 0):
     """cam_name: a preset key (e.g. "TUM1") or a CameraConfig instance.
-    Returns run statistics (frames, wall_s, fps, update_total_s and, with
-    the backend, keyframes, keyframe_path_ms per stage and lc_stage_ms per
-    loop-closure sub-stage, all in ms per event)."""
+    The align backend comes from CVO_SLAM_BACKEND (engine.default_backend).
+    Returns run statistics (frames, wall_s, fps, update_total_s, the align
+    backend and, with the SLAM backend, keyframes, keyframe_path_ms per
+    stage and lc_stage_ms per loop-closure sub-stage, all in ms per
+    event)."""
     device = resolve_device(device)
     cam = (cam_name if isinstance(cam_name, CameraConfig)
            else CAMERA_PRESETS[cam_name])
@@ -90,6 +92,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
     tracker = build_tracker(cam, cfg, verbose, device, vocabulary_path,
                             mesh_devices)
     tracker.init()
+    backend = tracker.lt.cvo_odometry.backend   # CVO_SLAM_BACKEND
 
     traj_path = os.path.join(folder, "Tracking_trajectory.txt")
     metrics_path = os.path.join(folder, "metrics.jsonl")
@@ -108,7 +111,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
             lc_num = 0 if tracker.graph is None else tracker.graph.lc_num
             mf.write(json.dumps({
                 "frame": i, "timestamp": image.timestamp, "t_frame_s": dt,
-                "lc_num": lc_num,
+                "lc_num": lc_num, "backend": backend,
                 **{k: (float(v) if isinstance(v, float) else int(v))
                    for k, v in tracker.lt.metrics.items()}}) + "\n")
             if verbose:
@@ -124,7 +127,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
     # frame IO/prefetch stalls + startup + writers
     stats = dict(frames=len(records), wall_s=wall,
                  fps=len(records) / wall if wall > 0 else 0.0,
-                 update_total_s=update_total_s)
+                 update_total_s=update_total_s, backend=backend)
     graph = tracker.graph
     if graph is not None:
         stats["keyframes"] = len(graph.keyframes())

@@ -15,8 +15,7 @@ information.
 Phases, in the reference's per-candidate order: (1) host ORB matching +
 RANSAC with its landmark side effects, candidate by candidate; (2) the
 device verification of every passing candidate (cvo.engine.lc_verify_batch:
-align on the moment kernel, then compute_innerproduct_lc on the pair-stats
-kernel); (3) host accept tests and edge insertion. Phase 2 depends on
+the align, then compute_innerproduct_lc on the pair-stats kernel); (3) host accept tests and edge insertion. Phase 2 depends on
 nothing phase 1 mutates, so the results equal the interleaved reference
 loop. Each round records its stage costs in graph.lc_stage_ms.
 
@@ -44,6 +43,11 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
     verification runs where the keyframes' clouds live."""
     matcher = Matcher(cam, cfg, scale_factor=cam.orb_scale_factor,
                       n_levels=cam.orb_n_levels)
+    # the verification align, routed as the JAX package's _vmap_backend:
+    # under 'pallas' and 'pallas_iter' one align_fused launch per
+    # candidate; under 'pallas_mom' the moment-kernel loop
+    backend = engine.default_backend()
+    verify_backend = "pallas" if backend == "pallas_iter" else backend
     refresh_thread = [None]
 
     def _refresh_stale(keyframes):
@@ -140,7 +144,7 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
             [m[:3, 3].astype(np.float32) for m in inv],
             [np.float32(p.ell_init)] * len(cands),
             [c[4].astype(np.float32) for c in cands],
-            [c[3].astype(np.float32) for c in cands], p)
+            [c[3].astype(np.float32) for c in cands], p, verify_backend)
         verified = [(np.asarray(res.transform.cpu().numpy(), np.float64),
                      engine.to_host(lc)) for res, lc in out]
         row["verify"] = (time.perf_counter() - t3) * 1e3

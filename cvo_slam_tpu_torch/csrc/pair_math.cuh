@@ -1,0 +1,92 @@
+// The pair math shared by every pairwise kernel of the port (ip_suite.cu,
+// flow_step.cu, align_fused.cu): gate constants, squared norms, the
+// FMA-chain dot products of the dot-product distance identity, the clamped
+// kernel exponential and the fixed-order block reductions.
+//
+// Every source that includes it is compiled with -fmad=false, so each
+// operation rounds as the same operation of the plain PyTorch versions
+// (ops/pairwise.py): gate decisions, and hence all pair counts, agree bit
+// for bit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 128;   // threads per block; rows per block; columns per tile
+
+struct Consts {
+  float log_ratio;  // log(sp_thres / sigma^2)
+  float d2ct;       // colour gate
+  float s2;         // sigma^2
+  float cs2;        // c_sigma^2
+  float two_cl2;    // 2 c_ell^2
+  float s2cs2;      // sigma^2 c_sigma^2 (joint kernel of the align passes)
+  float sp_thres;   // sparsification threshold (align passes)
+};
+
+__device__ __forceinline__ float sq3(const float* a) {
+  float s = a[0] * a[0];
+  s = s + a[1] * a[1];
+  s = s + a[2] * a[2];
+  return s;
+}
+
+__device__ __forceinline__ float sq5(const float* a) {
+  float s = a[0] * a[0];
+  for (int c = 1; c < 5; ++c) s = s + a[c] * a[c];
+  return s;
+}
+
+// dot product as a chain of fused multiply-adds in column order
+// (pairwise.pair_dots; -fmad=false leaves explicit __fmaf_rn alone)
+__device__ __forceinline__ float col_dot(const float* r,
+                                         const float (*col)[TILE], int k,
+                                         int dim) {
+  float dot = r[0] * col[0][k];
+  for (int c = 1; c < dim; ++c) dot = __fmaf_rn(r[c], col[c][k], dot);
+  return dot;
+}
+
+// max(rsq + csq - 2 dot, 0)
+__device__ __forceinline__ float ident_d2(float rsq, float csq,
+                                          const float* r,
+                                          const float (*col)[TILE], int k,
+                                          int dim) {
+  return fmaxf(rsq + csq - 2.f * col_dot(r, col, k, dim), 0.f);
+}
+
+// scale * exp(max(arg, -20)): the clamp is exact for every gated pair
+// (the gates bound the exponent at ~-5) and keeps gate-free values finite
+__device__ __forceinline__ float clamped_kernel(float scale, float arg) {
+  return scale * expf(fmaxf(arg, -20.f));
+}
+
+// fixed-order block tree reduction of one float per thread (blockDim.x ==
+// TILE); the result is returned to every thread
+__device__ float block_sum(float v, float* buf) {
+  buf[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = TILE / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s) buf[threadIdx.x] += buf[threadIdx.x + s];
+    __syncthreads();
+  }
+  const float r = buf[0];
+  __syncthreads();
+  return r;
+}
+
+__device__ int block_count(int v, int* buf) {
+  buf[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = TILE / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s) buf[threadIdx.x] += buf[threadIdx.x + s];
+    __syncthreads();
+  }
+  const int r = buf[0];
+  __syncthreads();
+  return r;
+}
+
+}  // namespace

@@ -3,8 +3,9 @@
 Each source is compiled by its own `nvcc` process (all started together)
 into a shared library with a plain C interface, loaded with ctypes. The
 build happens at first use, into the package's git-ignored build/
-directory; a library is named by the hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused.
+directory; a library is named by the hash of its source, the csrc/
+headers it includes (csrc/*.cuh) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no nvcc and no card.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +26,8 @@ from typing import Dict
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("moment_flow_step.cu", "ip_suite.cu")
+SOURCES = ("moment_flow_step.cu", "ip_suite.cu", "flow_step.cu",
+           "align_fused.cu")
 
 # -fmad=false: every float operation of a kernel rounds as the same
 # operation of its plain PyTorch version, so gate decisions agree bit for bit
@@ -46,11 +49,33 @@ def nvcc_path() -> str:
     return path
 
 
-def _so_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_closure(source: str, csrc_dir: str):
+    """`source` and every file under csrc_dir it includes with quotes,
+    directly or through another include, each once, in include order."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            todo.extend(m.decode() for m in _INCLUDE.findall(f.read()))
+    return seen
+
+
+def _so_path(source: str, csrc_dir: str = CSRC_DIR,
+             build_dir: str = BUILD_DIR) -> str:
+    """The library of `source`, named by the hash of the source, of every
+    header it includes and of the flags: an edited header rebuilds."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in _source_closure(source, csrc_dir):
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(build_dir, f"{stem}-{digest.hexdigest()[:12]}.so")
 
 
 def build_all() -> Dict[str, str]:

@@ -1,6 +1,6 @@
 """The pairwise passes of tracking and loop-closure verification:
-hand-written CUDA kernels (csrc/moment_flow_step.cu, csrc/ip_suite.cu), each
-beside its plain PyTorch version.
+hand-written CUDA kernels (csrc/*.cu), each beside its plain PyTorch
+version.
 
   * `moment_flow_step`: one align iteration (cvo.cpp:187-334). The kernel
     computes the moment matrix Mom (M, 35) and the kept-pair count nnz; the
@@ -13,6 +13,16 @@ beside its plain PyTorch version.
     count and, on request, the Hessian moments G (function_inner_product
     and se3_Hessian, cvo.cpp:388-459, :620-759), the single-pair-set mode
     of the suite kernel; compute_innerproduct_lc launches it 6 + 2 times.
+  * `flow_and_step` (csrc/flow_step.cu): one align iteration in per-pair
+    form, (omega, v, nnz) from the flow pass, then (B, C, D, E) from the
+    step pass with the fresh omega, v (the pallas_iter backend). Its two
+    passes are the kernels `flow` and `step_coeffs`, each launchable
+    alone (modes 1 and 2 of the same entry point, which only the JAX
+    package's tests call).
+  * `align_fused` (csrc/align_fused.cu): the whole align loop in one
+    cooperative launch (the pallas backend, and loop-closure verification
+    under pallas and pallas_iter); its plain version is engine.align_loop
+    over the plain flow_and_step.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel (building it on first use) or raises. Each
@@ -48,7 +58,15 @@ IP_SUITE = KernelInfo("ip_suite", "ip_suite.cu",
                       "cvo_slam_tpu/cvo/pallas_kernels.py:802")
 PAIR_STATS = KernelInfo("pair_stats", "ip_suite.cu",
                         "cvo_slam_tpu/cvo/pallas_kernels.py:418")
-KERNELS = (MOMENT, IP_SUITE, PAIR_STATS)
+FLOW_AND_STEP = KernelInfo("flow_and_step", "flow_step.cu",
+                           "cvo_slam_tpu/cvo/pallas_kernels.py:651")
+FLOW = KernelInfo("flow", "flow_step.cu",
+                  "cvo_slam_tpu/cvo/pallas_kernels.py:204")
+STEP = KernelInfo("step_coeffs", "flow_step.cu",
+                  "cvo_slam_tpu/cvo/pallas_kernels.py:304")
+ALIGN = KernelInfo("align_fused", "align_fused.cu",
+                   "cvo_slam_tpu/cvo/pallas_align.py:477")
+KERNELS = (MOMENT, IP_SUITE, PAIR_STATS, FLOW_AND_STEP, FLOW, STEP, ALIGN)
 
 
 def reset_launch_counts():
@@ -307,3 +325,189 @@ def pair_stats(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
     if xa.device.type == "cuda":
         return pair_stats_cuda(xa, fa, ma, xb, fb, mb, ell, p, with_moments)
     raise ValueError(f"unsupported device {xa.device}")
+
+
+# ---------------------------------------------------------------------------
+# one align iteration in per-pair form: flow, step coefficients, both
+# ---------------------------------------------------------------------------
+
+_BOTH, _FLOW_ONLY, _STEP_ONLY = 0, 1, 2
+
+
+def flow_plain(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """(omega, v, nnz): pairwise.flow, the plain version of the flow pass."""
+    omega, v, _, nnz = pairwise.flow(x, y, fx, fy, mx, my,
+                                     _as_ell(ell, x.device), p)
+    return omega, v, nnz
+
+
+def step_coeffs_plain(x, y, fx, fy, mx, my, omega, v, ell, p: CvoParams):
+    """(B, C, D, E): pairwise.step_coeffs over pairwise.cvo_kernel, the
+    plain version of the step pass."""
+    ell = _as_ell(ell, x.device)
+    A, _ = pairwise.cvo_kernel(x, y, fx, fy, mx, my, ell, p)
+    return pairwise.step_coeffs(x, y, A, omega, v, ell)
+
+
+def flow_and_step_plain(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """pairwise.flow_and_step: the plain version of the fused pass."""
+    return pairwise.flow_and_step(x, y, fx, fy, mx, my,
+                                  _as_ell(ell, x.device), p)
+
+
+def _flow_step_cuda(mode, x, y, fx, fy, mx, my, ell, p: CvoParams, wv=None):
+    """One launch of csrc/flow_step.cu in `mode`; returns (out_f (10,):
+    omega, v, B, C, D, E; out_n (1,): nnz), each holding its mode's
+    outputs."""
+    dev = x.device
+    n, m = x.shape[0], y.shape[0]
+    _check_cloud("fixed", x, fx, mx, n, dev)
+    _check_cloud("moving", y, fy, my, m, dev)
+    if wv is not None:
+        _check("omega, v", wv, torch.float32, (6,), dev)
+    ell = _as_ell(ell, dev).contiguous()
+    lib = cuda_build.load(FLOW_AND_STEP.source)
+    fn = lib.flow_and_step_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
+                   + [ctypes.c_void_p] * 7)
+    items = N_CHUNKS * -(-n // _TILE)
+    fpart = torch.empty((items, 12), dtype=torch.float32, device=dev)
+    npart = torch.empty((items,), dtype=torch.int32, device=dev)
+    spart = torch.empty((items, 4), dtype=torch.float32, device=dev)
+    out_f = torch.zeros((10,), dtype=torch.float32, device=dev)
+    out_n = torch.zeros((1,), dtype=torch.int32, device=dev)
+    err = fn(mode, _ptr(x), _ptr(fx), _ptr(mx), _ptr(y), _ptr(fy), _ptr(my),
+             _ptr(ell), n, m, N_CHUNKS, pairwise.log_sp_ratio(p),
+             pairwise.d2_color_threshold(p), 2.0 * p.c_ell * p.c_ell,
+             _s2cs2(p), p.sp_thres, p.c, p.d,
+             ctypes.c_void_p(None if wv is None else wv.data_ptr()),
+             _ptr(fpart), _ptr(npart), _ptr(spart), _ptr(out_f),
+             _ptr(out_n), _stream(dev))
+    _raise_on(err, FLOW_AND_STEP.name)
+    return out_f, out_n
+
+
+def flow_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """The CUDA flow pass: same function and tuple as flow_plain."""
+    out_f, out_n = _flow_step_cuda(_FLOW_ONLY, x, y, fx, fy, mx, my, ell, p)
+    FLOW.launches += 1
+    return out_f[0:3], out_f[3:6], out_n[0]
+
+
+def step_coeffs_cuda(x, y, fx, fy, mx, my, omega, v, ell, p: CvoParams):
+    """The CUDA step pass: same function and tuple as step_coeffs_plain."""
+    wv = torch.cat([omega.reshape(3), v.reshape(3)]).to(
+        device=x.device, dtype=torch.float32).contiguous()
+    out_f, _ = _flow_step_cuda(_STEP_ONLY, x, y, fx, fy, mx, my, ell, p, wv)
+    STEP.launches += 1
+    return out_f[6], out_f[7], out_f[8], out_f[9]
+
+
+def flow_and_step_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """Both passes in one launch: same function and tuple as
+    flow_and_step_plain."""
+    out_f, out_n = _flow_step_cuda(_BOTH, x, y, fx, fy, mx, my, ell, p)
+    FLOW_AND_STEP.launches += 1
+    return (out_f[0:3], out_f[3:6], out_n[0], out_f[6], out_f[7], out_f[8],
+            out_f[9])
+
+
+def flow(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """(omega, v, nnz) of the fixed cloud x/fx/mx against the transformed
+    moving cloud y/fy/my (compute_flow, cvo.cpp:187-236)."""
+    if x.device.type == "cpu":
+        return flow_plain(x, y, fx, fy, mx, my, ell, p)
+    if x.device.type == "cuda":
+        return flow_cuda(x, y, fx, fy, mx, my, ell, p)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def step_coeffs(x, y, fx, fy, mx, my, omega, v, ell, p: CvoParams):
+    """(B, C, D, E) of the step-size quartic for the flow (omega, v)
+    (compute_step_size, cvo.cpp:239-315)."""
+    if x.device.type == "cpu":
+        return step_coeffs_plain(x, y, fx, fy, mx, my, omega, v, ell, p)
+    if x.device.type == "cuda":
+        return step_coeffs_cuda(x, y, fx, fy, mx, my, omega, v, ell, p)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def flow_and_step(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """One align iteration in per-pair form: (omega, v, nnz, B, C, D, E)."""
+    if x.device.type == "cpu":
+        return flow_and_step_plain(x, y, fx, fy, mx, my, ell, p)
+    if x.device.type == "cuda":
+        return flow_and_step_cuda(x, y, fx, fy, mx, my, ell, p)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# the whole align loop in one launch
+# ---------------------------------------------------------------------------
+
+def align_fused_plain(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams):
+    """engine.align_loop over flow_and_step_plain (then ops/cubic and
+    ops/se3 on the host): (R, T, ell, iters, nnz)."""
+    from .engine import align_loop   # engine imports this module
+    res = align_loop(
+        lambda y, ell: flow_and_step_plain(x, y, fx, fy, mx, my, ell, p),
+        y0, R0, T0, ell0, p)
+    return res.R, res.T, res.ell, res.iters, res.nnz
+
+
+def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
+                     launch_info: dict | None = None):
+    """The cooperative align kernel: same function and tuple as
+    align_fused_plain, in one launch. A `launch_info` dict receives the
+    launch's grid, blocks per SM and SM count."""
+    dev = x.device
+    n, m = x.shape[0], y0.shape[0]
+    _check_cloud("fixed", x, fx, mx, n, dev)
+    _check_cloud("moving", y0, fy, my, m, dev)
+    _check("R0", R0, torch.float32, (3, 3), dev)
+    _check("T0", T0, torch.float32, (3,), dev)
+    if len(p.ell_anneal_iters) != 3 or len(p.ell_anneal_values) != 3:
+        raise ValueError("align_fused takes a 3-step ell anneal schedule")
+    init = torch.cat([R0.reshape(9), T0.reshape(3),
+                      _as_ell(ell0, dev).reshape(1)]).contiguous()
+    hf = (ctypes.c_float * 14)(
+        pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
+        2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d, p.eps,
+        p.eps_2, p.min_step, p.max_step, *p.ell_anneal_values)
+    hi = (ctypes.c_int * 4)(*p.ell_anneal_iters, p.max_iter)
+    info = (ctypes.c_int * 3)()
+    lib = cuda_build.load(ALIGN.source)
+    fn = lib.align_fused_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+                      ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_void_p] * 5
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    items = N_CHUNKS * -(-n // _TILE)
+    fpart = torch.empty((items, 12), dtype=torch.float32, device=dev)
+    npart = torch.empty((items,), dtype=torch.int32, device=dev)
+    spart = torch.empty((items, 4), dtype=torch.float32, device=dev)
+    out_f = torch.empty((13,), dtype=torch.float32, device=dev)
+    out_n = torch.empty((2,), dtype=torch.int32, device=dev)
+    err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(y0), _ptr(fy), _ptr(my), n,
+             m, N_CHUNKS, _ptr(init), hf, hi, _ptr(fpart), _ptr(npart),
+             _ptr(spart), _ptr(out_f), _ptr(out_n), info, _stream(dev))
+    _raise_on(err, ALIGN.name)
+    ALIGN.launches += 1
+    if launch_info is not None:
+        launch_info.update(grid=info[0], blocks_per_sm=info[1], sms=info[2])
+    return (out_f[:9].reshape(3, 3), out_f[9:12], out_f[12], out_n[0],
+            out_n[1])
+
+
+def align_fused(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams):
+    """The align loop (cvo.cpp:763-821) of the moving cloud y0/fy/my against
+    the fixed cloud x/fx/mx from (R0, T0, ell0): (R, T, ell, iters, nnz)."""
+    if x.device.type == "cpu":
+        return align_fused_plain(x, fx, mx, y0, fy, my, R0, T0, ell0, p)
+    if x.device.type == "cuda":
+        return align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p)
+    raise ValueError(f"unsupported device {x.device}")

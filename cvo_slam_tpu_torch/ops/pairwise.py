@@ -83,11 +83,118 @@ def pair_dots(a, b):
     return out
 
 
+def row_dots(a, b):
+    """(K, D), (K, D) -> (K,) row-wise dot products, the FMA chain of
+    pair_dots."""
+    out = a[:, 0] * b[:, 0]
+    for c in range(1, a.shape[1]):
+        out = _fma(a[:, c], b[:, c], out)
+    return out
+
+
 def pairwise_sq_dists(a, b):
     """(M,3),(N,3) -> (M,N) squared distances via the dot-product identity
     max(|a|^2 + |b|^2 - 2 a.b, 0) (ops/pairwise.py of the JAX package)."""
     return torch.clamp(sq_norms(a)[:, None] + sq_norms(b)[None, :]
                        - 2.0 * pair_dots(a, b), min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# se_kernel, compute_flow and compute_step_size in per-pair form
+# (cvo.cpp:122-334), the plain versions of the flow / step CUDA kernels
+# ---------------------------------------------------------------------------
+
+def cvo_kernel(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """Masked joint kernel A (N, M) of the fixed cloud x (rows) against the
+    transformed moving cloud y (columns), and keep = gate & a > sp_thres
+    (cvo.cpp:175). Gate and kernel as the Pallas `_pair_tile`: distances by
+    the dot identity, one fused exponential clamped at -20. The colour
+    distance and the kernel are evaluated only for the pairs inside the
+    geometric gate, with the same float operations per pair as over the
+    whole matrix."""
+    d2 = pairwise_sq_dists(x, y)
+    i, j = torch.nonzero((d2 < d2_threshold(ell, p)) & mx[:, None]
+                         & my[None, :], as_tuple=True)
+    fa, fb = fx[i], fy[j]
+    d2c = torch.clamp(sq_norms(fa) + sq_norms(fb) - 2.0 * row_dots(fa, fb),
+                      min=0.0)
+    arg = -(d2[i, j] / (2.0 * ell * ell) + d2c / (2.0 * p.c_ell * p.c_ell))
+    a = (p.sigma * p.sigma * p.c_sigma * p.c_sigma) * torch.exp(
+        torch.clamp(arg, min=-20.0))
+    kept = (d2c < d2_color_threshold(p)) & (a > p.sp_thres)
+    i, j = i[kept], j[kept]
+    keep = torch.zeros_like(d2, dtype=torch.bool)
+    keep[i, j] = True
+    A = torch.zeros_like(d2)
+    A[i, j] = a[kept]
+    return A, keep
+
+
+def flow(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """omega, v of the RKHS gradient flow (compute_flow, cvo.cpp:187-236):
+    omega = (1/c) sum_ij A_ij (x_i x y_j), v = (1/d) sum_ij A_ij (y_j - x_i).
+    Returns (omega, v, A, nnz)."""
+    A, keep = cvo_kernel(x, y, fx, fy, mx, my, ell, p)
+    # d_i = sum_j A_ij (y_j - x_i) is locally small; omega = sum x_i x d_i
+    # (exact: x x x = 0) does not cancel when clouds sit metres from the
+    # origin, as the raw sum of x_i x y_j would
+    d = A @ y - torch.sum(A, dim=1)[:, None] * x
+    omega = torch.sum(torch.linalg.cross(x, d, dim=1), dim=0) / p.c
+    v = torch.sum(d, dim=0) / p.d
+    return omega, v, A, torch.sum(keep, dtype=torch.int32)
+
+
+def _cross_omega(w, u):
+    """omega x u_j for (M, 3) rows u, coordinate by coordinate."""
+    return torch.stack([w[1] * u[:, 2] - w[2] * u[:, 1],
+                        w[2] * u[:, 0] - w[0] * u[:, 2],
+                        w[0] * u[:, 1] - w[1] * u[:, 0]], dim=1)
+
+
+def step_coeffs(x, y, A, omega, v, ell):
+    """Taylor coefficients B, C, D, E of the 4th-order step-size expansion
+    (cvo.cpp:239-315). Per pair, with j the moving index, tc = 1/(2 l^2):
+      beta  = -2 tc xiz_j . (x_i - y_j)
+      gamma = -tc (|xiz_j|^2 + 2 xi2z_j . (x_i - y_j))
+      delta = 2 tc (-xiz_j . xi2z_j - xi3z_j . (x_i - y_j))
+      epsil = -tc (|xi2z_j|^2 + 2 xiz_j . xi3z_j + 2 xi4z_j . (x_i - y_j))
+    xiz = omega x y + v and xi{k+1}z = omega x xi{k}z, the recursive cross
+    form of the Pallas kernels (equal to cvo.cpp:252-260's matrix powers).
+    The sums run over the kept pairs (A_ij > 0) only."""
+    xiz = _cross_omega(omega, y) + v[None, :]
+    xi2z = _cross_omega(omega, xiz)
+    xi3z = _cross_omega(omega, xi2z)
+    xi4z = _cross_omega(omega, xi3z)
+
+    def rowdot(u, w):
+        return u[:, 0] * w[:, 0] + u[:, 1] * w[:, 1] + u[:, 2] * w[:, 2]
+
+    i, j = torch.nonzero(A, as_tuple=True)
+    a, xi = A[i, j], x[i]
+
+    def xdot(u):          # x_i . u_j - u_j . y_j over the kept pairs
+        return rowdot(xi, u[j]) - rowdot(u, y)[j]
+
+    normxiz2 = rowdot(xiz, xiz)[j]
+    xiz_dot_xi2z = -rowdot(xiz, xi2z)[j]
+    epsil_const = (rowdot(xi2z, xi2z) + 2.0 * rowdot(xiz, xi3z))[j]
+    tc = 1.0 / (2.0 * ell * ell)
+    beta = -2.0 * tc * xdot(xiz)
+    gamma = -tc * (normxiz2 + 2.0 * xdot(xi2z))
+    delta = 2.0 * tc * (xiz_dot_xi2z - xdot(xi3z))
+    epsil = -tc * (epsil_const + 2.0 * xdot(xi4z))
+    B = torch.sum(a * beta)
+    C = torch.sum(a * (gamma + beta * beta * 0.5))
+    D = torch.sum(a * (delta + beta * gamma + beta ** 3 / 6.0))
+    E = torch.sum(a * (epsil + beta * delta + 0.5 * beta * beta * gamma
+                       + 0.5 * gamma * gamma + beta ** 4 / 24.0))
+    return B, C, D, E
+
+
+def flow_and_step(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """One align iteration in per-pair form: (omega, v, nnz, B, C, D, E)."""
+    omega, v, A, nnz = flow(x, y, fx, fy, mx, my, ell, p)
+    return (omega, v, nnz) + step_coeffs(x, y, A, omega, v, ell)
 
 
 # ---------------------------------------------------------------------------

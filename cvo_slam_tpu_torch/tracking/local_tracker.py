@@ -49,7 +49,7 @@ def _execute_frame(odo: Cvo, kfc: Cvo, cloud, pixels):
     res1, ip1, res2, ip2, _ = engine.frame_step(
         odo.fixed, kfc.fixed, odo.moving, odo.R, odo.T,
         np.float32(odo.start_ell()), kfc.transform.astype(np.float32),
-        np.float32(kfc.start_ell()), odo.params)
+        np.float32(kfc.start_ell()), odo.params, odo.backend)
     h1, hip1, h2, hip2 = engine.to_host((tuple(res1), ip1, tuple(res2), ip2))
     return odo._apply_align(*h1), hip1, kfc._apply_align(*h2), hip2
 
@@ -86,6 +86,8 @@ class LocalTracker:
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
+        # both instances take the align backend of CVO_SLAM_BACKEND
+        # (engine.default_backend)
         self.cvo_odometry = Cvo(cfg.cvo)
         self.cvo_keyframe = Cvo(cfg.cvo)
         self.local_map: Optional[LocalMap] = None
