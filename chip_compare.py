@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Same-call comparisons on one GPU, beside chip_smoke.py's own numbers.
+
+Usage (from the root of a checkout, on a machine with a CUDA card):
+    python3 chip_compare.py e2e ROOT
+    python3 chip_compare.py kernels ROOT
+
+e2e: chip_smoke.py's end-to-end phases on the package under ROOT: tracking
+under pallas (16 frames) and pallas_iter (8 frames), run_odometry, and the
+whole SLAM system under pallas with its verify ms per candidate. ROOT is
+this checkout (.) or another commit unpacked with `git archive` into a
+git-ignored directory. Host-bound times move by tens of percent between
+machines, so compare two commits in one call, in turns: parent, change,
+change, parent.
+
+kernels: the per-pair kernels of the package under ROOT, built from its
+csrc/: ptxas's registers and the device time (torch.profiler) of
+flow_and_step, flow and step_coeffs at CAP 3072 (frames 0 -> 1 of
+chip_smoke's sequence, ell 0.15 and 0.06; nnz checked against the plain
+version) and of align_fused (ell 0.15 from the identity), with its
+iterations and launch; then, for each of the sequence's first N_PAIRS
+frame pairs k -> k + 1 at CAP 3072, align_fused's iterations and end
+transform against its plain version's (the whole-run gap: the stop rule
+and the sparsification gate turn last-bit differences of the sums into
+different iteration counts). Run several in one call to compare them.
+
+Both print a result line per phase and exit non-zero without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import shutil
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the per-pair kernels as torch.profiler names them, in this tree and in
+# its parent (which had one-block finalize kernels)
+PASS_NAMES = ("flow_pass", "step_pass", "flow_finalize", "step_finalize")
+N_PAIRS = 6      # frame pairs of the whole-run gap
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def e2e(root: str) -> int:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    cs = _chip_smoke()
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS
+    from cvo_slam_tpu_torch.cvo import cuda_build, kernels
+    from cvo_slam_tpu_torch.data import synthetic
+    if not kernels.__file__.startswith(root):
+        raise RuntimeError(f"imported {kernels.__file__}, not under {root}")
+    cuda_build.build_all()
+    card = cs.card_line()
+    report = {k.name: dict(name=k.name, launches=0) for k in kernels.KERNELS}
+    print(f"e2e of {root} on {card}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_compare_") as folder:
+        gt = synthetic.make_sequence(folder, CAMERA_PRESETS["TUM1"],
+                                     n_frames=cs.N_FRAMES)
+        cs.tracking(folder, gt, report, card, "pallas")
+        cs.tracking(folder, gt, report, card, "pallas_iter", cs.ITER_FRAMES)
+        cs.odometry(folder, gt, card)
+        st = cs.slam(os.path.join(folder, "slam"), report, card,
+                     backend="pallas")
+    per_cand = st["lc_stage_ms"]["verify"]["mean"] * st["lc_rounds"] \
+        / st["lc_candidates"]
+    print(f"verify per candidate (pallas): {per_cand:.1f} ms over "
+          f"{st['lc_candidates']} candidates", flush=True)
+    return 0
+
+
+def _sequence_clouds(cs, folder, cam, cap):
+    """Every frame of the sequence in `folder` as a cloud on the card."""
+    from cvo_slam_tpu_torch.config import FrontendParams
+    from cvo_slam_tpu_torch.data import tum
+    from cvo_slam_tpu_torch.frontend.pointcloud import create_pointcloud
+    fp = FrontendParams(cloud_capacity=cap)
+    return [cs.host_cloud_tensors(create_pointcloud(
+        im.bgr, im.gray, im.depth, cam, fp), "cuda")
+        for im in (tum.load_image(folder, r) for r in tum.load_association(
+            os.path.join(folder, "associate.txt")))]
+
+
+def kernels_mode(root: str) -> int:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    cs = _chip_smoke()
+    import torch
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
+    from cvo_slam_tpu_torch.cvo import cuda_build, kernels
+    from cvo_slam_tpu_torch.data import synthetic
+    if not kernels.__file__.startswith(root):
+        raise RuntimeError(f"imported {kernels.__file__}, not under {root}")
+    tmp = tempfile.mkdtemp(prefix="chip_compare_")
+    try:
+        cuda_build.build_all()
+        regs = {src: [line.split(":", 1)[-1].strip()
+                      for line in cuda_build.build_report.get(
+                          "ptxas", {}).get(src, "").splitlines()
+                      if "registers" in line]
+                for src in ("flow_step.cu", "align_fused.cu")}
+
+        cam, p = CAMERA_PRESETS["TUM1"], SlamConfig.default_shipped().cvo
+        seq = os.path.join(tmp, "seq")
+        synthetic.make_sequence(seq, cam, n_frames=N_PAIRS + 1)
+        clouds = _sequence_clouds(cs, seq, cam, cs.CAPS[0])
+        (x, fx, mx), (y, fy, my) = clouds[:2]
+        args = (x, y, fx, fy, mx, my)
+        ms = {}
+        for ell_v in cs.ELLS:
+            ell = torch.tensor(ell_v, device="cuda")
+            want = kernels.flow_and_step_plain(*args, ell, p)
+            if int(kernels.flow_and_step_cuda(*args, ell, p)[2]) \
+                    != int(want[2]):
+                raise AssertionError(f"nnz differs from the plain version "
+                                     f"at ell {ell_v}")
+            calls = {
+                "flow_and_step": lambda: kernels.flow_and_step_cuda(
+                    *args, ell, p),
+                "flow": lambda: kernels.flow_cuda(*args, ell, p),
+                "step_coeffs": lambda: kernels.step_coeffs_cuda(
+                    *args, want[0], want[1], ell, p),
+            }
+            for k, fn in calls.items():
+                ms[f"{k} {ell_v}"] = cs.device_time_ms(fn, PASS_NAMES)
+        def align_args(k):
+            return clouds[k] + clouds[k + 1] + (
+                torch.eye(3, device="cuda"), torch.zeros(3, device="cuda"),
+                torch.tensor(cs.ELLS[0], device="cuda"), p)
+
+        a = align_args(0)
+        launch = {}
+        iters = int(kernels.align_fused_cuda(*a, launch_info=launch)[3])
+        t = cs.device_time_ms(lambda: kernels.align_fused_cuda(*a),
+                              cs.DEVICE_NAMES["align_fused"], reps=5)
+        gaps = []
+        for k in range(N_PAIRS):
+            R, T, _, it, _ = kernels.align_fused_cuda(*align_args(k))
+            Rp, Tp, _, itp, _ = kernels.align_fused_plain(*align_args(k))
+            dt, ang = cs.transform_gap((R, T), (Rp, Tp))
+            gaps.append(f"{k}->{k + 1}: {int(it)} vs {int(itp)} iterations, "
+                        f"{dt:.2e} m, {ang:.2e} rad")
+        print(f"kernels of {root} on {cs.card_line()}: registers {regs}; "
+              f"device ms {ms}; align_fused {t:.4f} ms, {iters + 1} "
+              f"iterations, {t / (iters + 1):.4f} ms per iteration, launch "
+              f"{launch}; whole-run gap to the plain version, CAP "
+              f"{cs.CAPS[0]}: {'; '.join(gaps)}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false: this run needs a "
+              "CUDA card", file=sys.stderr)
+        return 1
+    if sys.argv[1:2] == ["e2e"] and len(sys.argv) == 3:
+        return e2e(sys.argv[2])
+    if sys.argv[1:2] == ["kernels"] and len(sys.argv) == 3:
+        return kernels_mode(sys.argv[2])
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

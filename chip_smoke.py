@@ -19,20 +19,24 @@ Phases; any failure exits non-zero:
      Mom up to 1e-3 (D) and 1e-1 (E) relative on these clouds, for the
      plain version as much as for the kernel (measured against an f64
      evaluation of the same Mom). Times by CUDA events (median of 5 runs
-     of 10 launches) beside the plain version's time and the bound;
+     of 10 calls: the wrapper's host work included) and the kernels' own
+     device time (torch.profiler over 20 calls) beside the plain version's
+     time and the bound;
      The pair-stats kernel is held the same way, with and without
      moments: value and count, G and inliers. The per-pair align
      kernels: flow_and_step, flow and step_coeffs (csrc/flow_step.cu)
      against their plain versions at the same capacities and ells, nnz
      exact, omega and v rtol 2e-4 / atol 1e-6, B, C, D, E rtol 2e-3 (the
-     bar of tests/test_pallas.py); align_fused (csrc/align_fused.cu)
-     against align_fused_plain on frames 0 -> 1 from the identity at ell
-     0.15: ell equal, transform within 1e-4 (metres and radians), the
-     iteration count within ALIGN_ITERS_SPREAD (ROADMAP queue 3: counts
-     are not bit-stable across f32 reduction orders; the moment-form
-     align's count on the same pair is printed beside them). flow and
-     step_coeffs lie on no path (only the JAX package's tests call
-     them): their launches are those of these checks, and each
+     bar of tests/test_pallas.py), pass 1's keep bitmask equal bit for
+     bit to the keep mask of ops/pairwise.cvo_kernel, two launches of each
+     bitwise equal; align_fused (csrc/align_fused.cu) against
+     align_fused_plain on frames 0 -> 1 from the identity at ell 0.15: ell
+     equal, the iteration count within ALIGN_ITERS_SPREAD (the moment-form
+     align's count printed beside them), the transform within 1e-4 (metres
+     and radians), two launches bitwise equal, the grid the card's resident
+     blocks or the work items, whichever is fewer.
+     flow and step_coeffs lie on no path (only the JAX package's tests
+     call them): their launches are those of these checks, and each
      flow_and_step launch of the main path runs both passes once more;
   3. tracking: tracking-only SLAM at 640x480 / CAP 3072 on a 16-frame
      synthetic sequence through app.run_slam.run(device="cuda"), with the
@@ -62,7 +66,8 @@ Phases; any failure exits non-zero:
   4c. app.run_odometry on the 16-frame sequence under pallas: 15 finite
      poses, align_fused launched 15 times; ms/frame;
   5. one engine.frame_step under torch.profiler on each backend: device
-     busy share and kernel launches per frame and per align iteration;
+     busy share, kernel launches per frame and per align iteration, and
+     the device time by kernel name (top 10);
   6. a JSON line with every kernel's numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
@@ -101,16 +106,26 @@ ELLS = (0.15, 0.06)
 TWIST = (0.02, -0.01, 0.03, 0.05, 0.02, -0.04)   # post transform of the suite
 ITER_FRAMES = 8            # length of the pallas_iter tracking phase
 # align_fused against its plain version: iteration counts may differ by up
-# to this many (measured at CAP 3072 on an NVIDIA H100 80GB HBM3: 37 vs 40
-# on this script's frames 0 -> 1; see ROADMAP queue 3)
-ALIGN_ITERS_SPREAD = 3
+# to this many (measured at CAP 3072 on an NVIDIA H100 80GB HBM3 on this
+# script's frames 0 -> 1: 37 vs 40 with the sums of the first kernel, 45 vs
+# 40 with the fixed order of csrc/flow_step.cuh; see ROADMAP queue 3)
+ALIGN_ITERS_SPREAD = 5
 # kernels on no path of the JAX package (only its tests call them): their
 # launches are those of the phase-2 checks
 CHECK_ONLY = ("flow", "step_coeffs")
 # the port's CUDA kernels as torch.profiler names them
 OUR_KERNELS = ("moment_pass", "moment_reduce", "suite_", "pair_stats_pass",
-               "flow_pass", "step_pass", "flow_finalize", "step_finalize",
-               "align_kernel")
+               "flow_pass", "step_pass", "align_kernel")
+# the CUDA kernels each wrapper launches, as torch.profiler names them
+DEVICE_NAMES = {
+    "moment_flow_step": ("moment_pass", "moment_reduce"),
+    "ip_suite": ("suite_",),
+    "pair_stats": ("pair_stats_pass", "suite_"),
+    "flow_and_step": ("flow_pass", "step_pass"),
+    "flow": ("flow_pass",),
+    "step_coeffs": ("step_pass",),
+    "align_fused": ("align_kernel",),
+}
 
 
 def fail(msg: str) -> int:
@@ -144,6 +159,26 @@ def cuda_time_ms(fn, reps=10, trials=5):
         times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+def device_time_ms(fn, names, reps=20):
+    """Mean device time per call of `fn` of the CUDA kernels whose names
+    contain one of `names`, from torch.profiler over `reps` calls after one
+    warm-up call: the kernels' own time, without the wrapper's host work
+    and launch gaps (which cuda_time_ms includes). None if the profiler saw
+    none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.name for k in names))
+    return us / reps / 1e3 if us else None
 
 
 # -- operation and byte counts of each kernel's function ---------------------
@@ -360,46 +395,59 @@ def kernel_checks(clouds, p, report):
         # times at the main path's capacity, at both ells
         for ell in ELLS:
             ell_t = torch.tensor(ell, device=x.device)
-            t_k = cuda_time_ms(lambda: kernels.moment_pass_cuda(
-                x, y, fx, fy, mx, my, U, ell_t, p))
+            kern = lambda: kernels.moment_pass_cuda(  # noqa: E731
+                x, y, fx, fy, mx, my, U, ell_t, p)
+            t_k, t_d = cuda_time_ms(kern), device_time_ms(
+                kern, DEVICE_NAMES["moment_flow_step"])
             t_p = cuda_time_ms(lambda: kernels.moment_pass_plain(
                 x, y, fx, fy, mx, my, U, ell_t, p), reps=3)
             ops, nbytes = moment_counts(x, fx, mx, y, fy, my, ell, p)
             b, by = bound_ms(ops, nbytes)
-            _record(report["moment_flow_step"], ell, t_k, t_p, b, by, ops)
-            t_k = cuda_time_ms(lambda: kernels.ip_suite_cuda(
-                x, fx, mx, y, fy, my, yt, ell_t, p))
+            _record(report["moment_flow_step"], ell, t_k, t_p, b, by, ops,
+                    device=t_d)
+            kern = lambda: kernels.ip_suite_cuda(  # noqa: E731
+                x, fx, mx, y, fy, my, yt, ell_t, p)
+            t_k, t_d = cuda_time_ms(kern), device_time_ms(
+                kern, DEVICE_NAMES["ip_suite"])
             t_p = cuda_time_ms(lambda: kernels.ip_suite_plain(
                 x, fx, mx, y, fy, my, yt, ell_t, p), reps=3)
             ops, nbytes = suite_counts(x, fx, mx, y, fy, my, yt, ell, p)
             b, by = bound_ms(ops, nbytes)
-            _record(report["ip_suite"], ell, t_k, t_p, b, by, ops)
+            _record(report["ip_suite"], ell, t_k, t_p, b, by, ops,
+                    device=t_d)
             # pair stats: the six calls without moments are the main ones;
             # the two with moments are recorded beside them
             for mom in (True, False):
-                t_k = cuda_time_ms(lambda: kernels.pair_stats_cuda(
-                    yt, fy, my, x, fx, mx, ell_t, p, mom))
+                kern = lambda: kernels.pair_stats_cuda(  # noqa: E731
+                    yt, fy, my, x, fx, mx, ell_t, p, mom)
+                t_k, t_d = cuda_time_ms(kern), device_time_ms(
+                    kern, DEVICE_NAMES["pair_stats"])
                 t_p = cuda_time_ms(lambda: kernels.pair_stats_plain(
                     yt, fy, my, x, fx, mx, ell_t, p, mom), reps=3)
                 ops, nbytes = pair_stats_counts(yt, fy, my, x, fx, mx, ell,
                                                 p, mom)
                 b, by = bound_ms(ops, nbytes)
                 _record(report["pair_stats"], ell, t_k, t_p, b, by, ops,
-                        "moments" if mom else "")
+                        "moments" if mom else "", device=t_d)
 
 
-def _record(entry, ell, t_k, t_p, b, by, ops, mode=""):
-    """Print one timing; keep it under times_by_ell (mode-suffixed keys for
-    a second mode) and as the entry's headline at the first ell without a
-    mode."""
+def _record(entry, ell, t_k, t_p, b, by, ops, mode="", device=None):
+    """Print one timing: t_k the CUDA-event time per wrapper call (host work
+    included), `device` the kernels' own device time per call; keep it under
+    times_by_ell (mode-suffixed keys for a second mode) and as the entry's
+    headline at the first ell without a mode."""
     tag = f" {mode}" if mode else ""
+    dev = f"{device:.4f} ms" if device else "not measured"
+    share = f"{b / device:.1%}" if device else "not measured"
     print(f"{entry['name']}{tag} CAP {CAPS[0]} ell {ell}: kernel {t_k:.4f} "
-          f"ms, plain {t_p:.4f} ms, bound {b:.4f} ms ({by}, {ops:.4g} ops), "
-          f"{b / t_k:.1%} of bound", flush=True)
+          f"ms per call, device {dev}, plain {t_p:.4f} ms, bound {b:.4f} ms "
+          f"({by}, {ops:.4g} ops), {b / t_k:.1%} of bound per call, {share} "
+          f"on the device", flush=True)
     entry["times_by_ell"][str(ell) + (f" {mode}" if mode else "")] = dict(
-        ms=t_k, plain_ms=t_p, bound_ms=b)
+        ms=t_k, device_ms=device, plain_ms=t_p, bound_ms=b)
     if ell == ELLS[0] and not mode:
-        entry.update(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by)
+        entry.update(ms=t_k, device_ms=device, plain_ms=t_p, bound_ms=b,
+                     bound_by=by)
 
 
 def flow_step_checks(clouds, p, report):
@@ -415,12 +463,34 @@ def flow_step_checks(clouds, p, report):
         args = (x, y, fx, fy, mx, my)
         for ell in ELLS:
             want = kernels.flow_and_step_plain(*args, ell, p)
-            got = kernels.flow_and_step_cuda(*args, ell, p)
+            bits = torch.empty((-(-y.shape[0] // kernels.KEEP_WORD),
+                                x.shape[0]), dtype=torch.int32,
+                               device=x.device)
+            split = {}
+            got = kernels.flow_and_step_cuda(*args, ell, p, keep_bits=bits,
+                                             launch_info=split)
             flow = kernels.flow_cuda(*args, ell, p)
             step = kernels.step_coeffs_cuda(*args, want[0], want[1], ell, p)
             step_want = kernels.step_coeffs_plain(*args, want[0], want[1],
                                                   ell, p)
+            # determinism: a second launch of each kernel, bit for bit
+            again = (kernels.flow_and_step_cuda(*args, ell, p),
+                     kernels.flow_cuda(*args, ell, p),
+                     kernels.step_coeffs_cuda(*args, want[0], want[1], ell,
+                                              p))
             torch.cuda.synchronize()
+            for name, a, b in zip(("flow_and_step", "flow", "step_coeffs"),
+                                  again, (got, flow, step)):
+                if not all(torch.equal(u, w) for u, w in zip(a, b)):
+                    raise AssertionError(f"{name}: two launches differ (CAP "
+                                         f"{cap}, ell {ell})")
+            # pass 1's keep bitmask against pairwise.cvo_kernel's keep
+            want_bits = kernels.keep_bits_plain(*args, ell, p)
+            if not torch.equal(bits, want_bits):
+                diff = kernels.unpack_keep_bits(bits, y.shape[0]) \
+                    ^ kernels.unpack_keep_bits(want_bits, y.shape[0])
+                raise AssertionError(f"keep bitmask: {int(diff.sum())} bits "
+                                     f"differ (CAP {cap}, ell {ell})")
             for name, n in (("flow_and_step", got[2]), ("flow", flow[2])):
                 if int(n) != int(want[2]):
                     raise AssertionError(f"{name} nnz {int(n)} != "
@@ -442,8 +512,10 @@ def flow_step_checks(clouds, p, report):
             rel = [abs(float(g) - float(w)) / abs(float(w))
                    for g, w in zip(got[3:], want[3:])]
             print(f"flow_and_step / flow / step_coeffs CAP {cap} ell {ell}: "
-                  f"nnz {int(got[2])} equal; max |err| {errs}; B C D E rel "
-                  f"diff {' '.join(f'{r:.2e}' for r in rel)}", flush=True)
+                  f"nnz {int(got[2])} equal; keep bitmask equal bit for bit;"
+                  f" two launches bitwise equal; max |err| {errs}; B C D E "
+                  f"rel diff {' '.join(f'{r:.2e}' for r in rel)}; split "
+                  f"{split}", flush=True)
     for k in (kernels.FLOW, kernels.STEP):
         report[k.name]["launches"] = k.launches
     (x, fx, mx), (y, fy, my) = clouds[CAPS[0]]
@@ -462,17 +534,35 @@ def flow_step_checks(clouds, p, report):
                  lambda: kernels.step_coeffs_plain(
                     *args, omega, v, ell_t, p), ("step",))):
             t_k = cuda_time_ms(kern)
+            t_d = device_time_ms(kern, DEVICE_NAMES[name])
             t_p = cuda_time_ms(plain, reps=3)
             ops, nbytes = flow_step_counts(x, fx, mx, y, fy, my, ell, p,
                                            passes)
             b, by = bound_ms(ops, nbytes)
-            _record(report[name], ell, t_k, t_p, b, by, ops)
+            _record(report[name], ell, t_k, t_p, b, by, ops, device=t_d)
+
+
+def transform_gap(a, b):
+    """(max |dt| in metres, angle in radians) between the transforms
+    [R^T | -R^T T] of two align states (R, T)."""
+    import numpy as np
+
+    def transform(R, T):
+        Rt = R.double().T.cpu().numpy()
+        return Rt, -(Rt @ T.double().cpu().numpy())
+
+    (Ra, ta), (Rb, tb) = transform(*a), transform(*b)
+    D = Ra.T @ Rb
+    return float(np.abs(ta - tb).max()), 0.5 * float(np.linalg.norm(
+        [D[2, 1] - D[1, 2], D[0, 2] - D[2, 0], D[1, 0] - D[0, 1]]))
 
 
 def align_checks(clouds, p, report):
     """Phase 2, align_fused against align_fused_plain on frames 0 -> 1 at
-    CAP 3072 from the identity at ell 0.15; time per alignment; the bound
-    over the plain run's iterations (module docstring)."""
+    CAP 3072 from the identity at ell 0.15: ell equal, iterations within
+    ALIGN_ITERS_SPREAD, the transform within 1e-4; two launches bitwise
+    equal; time per alignment; the bound over the plain run's iterations
+    (module docstring)."""
     import numpy as np
     import torch
     from cvo_slam_tpu_torch.cvo import engine, kernels
@@ -481,27 +571,25 @@ def align_checks(clouds, p, report):
     args = (x, fx, mx, y, fy, my, torch.eye(3, device=dev),
             torch.zeros(3, device=dev), torch.tensor(ELLS[0], device=dev), p)
     launch = {}
-    R, T, ell, iters, _ = kernels.align_fused_cuda(*args, launch_info=launch)
+    got = kernels.align_fused_cuda(*args, launch_info=launch)
+    R, T, ell, iters, _ = got
+    again = kernels.align_fused_cuda(*args)
     Rp, Tp, ellp, iters_p, _ = kernels.align_fused_plain(*args)
     mom = engine.align(engine.PointCloud(x, fx, mx),
                        engine.PointCloud(y, fy, my), args[6], args[7],
                        ELLS[0], p, "pallas_mom")
     torch.cuda.synchronize()
-
-    def transform(R, T):
-        Rt = R.double().T.cpu().numpy()
-        return Rt, -(Rt @ T.double().cpu().numpy())
-
-    (Ra, ta), (Rb, tb) = transform(R, T), transform(Rp, Tp)
-    D = Ra.T @ Rb
-    ang = 0.5 * float(np.linalg.norm([D[2, 1] - D[1, 2], D[0, 2] - D[2, 0],
-                                      D[1, 0] - D[0, 1]]))
-    dt = float(np.abs(ta - tb).max())
+    dt, ang = transform_gap((R, T), (Rp, Tp))
     print(f"align_fused CAP {CAPS[0]} frames 0 -> 1 ell {ELLS[0]}: iters "
           f"{int(iters)} (plain {int(iters_p)}, moment-form align "
           f"{int(mom.iters)}), ell {float(ell)} (plain {float(ellp)}), "
-          f"transform |dt| {dt:.3e} m, angle {ang:.3e} rad; launch "
-          f"{launch}", flush=True)
+          f"transform |dt| {dt:.3e} m, angle {ang:.3e} rad; launch {launch}",
+          flush=True)
+    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+        raise AssertionError("align_fused: two launches differ")
+    if launch["grid"] != min(launch["items"],
+                             launch["blocks_per_sm"] * launch["sms"]):
+        raise AssertionError(f"align_fused grid {launch}")
     if abs(int(iters) - int(iters_p)) > ALIGN_ITERS_SPREAD:
         raise AssertionError(f"align_fused iters {int(iters)} vs plain "
                              f"{int(iters_p)}")
@@ -528,13 +616,16 @@ def align_checks(clouds, p, report):
     b, by = bound_ms(ops, nbytes)
     t_k = cuda_time_ms(lambda: kernels.align_fused_cuda(*args), reps=5,
                        trials=3)
+    t_d = device_time_ms(lambda: kernels.align_fused_cuda(*args),
+                         DEVICE_NAMES["align_fused"], reps=5)
     t_p = cuda_time_ms(lambda: kernels.align_fused_plain(*args), reps=1,
                        trials=3)
-    print(f"align_fused CAP {CAPS[0]}: {t_k:.4f} ms per alignment, "
-          f"{n_iter} iterations, {t_k / n_iter:.4f} ms per iteration; plain "
-          f"{t_p:.1f} ms; bound {b:.4f} ms ({by}, {ops:.4g} ops), "
-          f"{b / t_k:.1%} of bound", flush=True)
-    report["align_fused"].update(ms=t_k, plain_ms=t_p, bound_ms=b,
+    print(f"align_fused CAP {CAPS[0]}: {t_k:.4f} ms per alignment (device "
+          f"{t_d:.4f} ms), {n_iter} iterations, {t_k / n_iter:.4f} ms per "
+          f"iteration; plain {t_p:.1f} ms; bound {b:.4f} ms ({by}, "
+          f"{ops:.4g} ops), {b / t_k:.1%} of bound", flush=True)
+    report["align_fused"].update(ms=t_k, device_ms=t_d, plain_ms=t_p,
+                                 bound_ms=b,
                                  bound_by=by, iterations=n_iter,
                                  ms_per_iteration=t_k / n_iter,
                                  launch=launch)
@@ -579,6 +670,7 @@ def profile_frame(clouds, p, backend):
         res = frame()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels_us, ours_us, n = 0.0, 0.0, 0
+    by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             d = e.time_range.elapsed_us()
@@ -586,6 +678,10 @@ def profile_frame(clouds, p, backend):
             n += 1
             if any(k in e.name for k in OUR_KERNELS):
                 ours_us += d
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0][:60]
+            t, c = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + d, c + 1)
     iters = int(res[0].iters) + int(res[2].iters) + 2
     if kernels_us == 0.0:
         print(f"profile of one frame_step ({backend}): wall {wall_ms:.1f} "
@@ -598,12 +694,35 @@ def profile_frame(clouds, p, backend):
           f"{kernels_us / 1e3 / wall_ms:.1%} busy, {n} kernel launches per "
           f"frame ({n / iters:.1f} per iteration), the port's CUDA kernels "
           f"{ours_us / 1e3:.2f} ms", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    print(f"  device time by kernel ({backend}, top 10: ms, launches): "
+          + "; ".join(f"{k} {t / 1e3:.3f} ms x{c}" for k, (t, c) in top),
+          flush=True)
 
 
 def host_cloud_tensors(pc, device):
     from cvo_slam_tpu_torch.cvo.engine import PointCloud
     c = PointCloud.from_host(pc, device)
     return c.positions, c.features, c.mask
+
+
+def first_pair_clouds(folder, cam, caps=CAPS):
+    """{CAP: [(x, fx, mx), (y, fy, my)]}: frames 0 and 1 of the sequence in
+    `folder` as clouds on the card, at each capacity."""
+    from cvo_slam_tpu_torch.config import FrontendParams
+    from cvo_slam_tpu_torch.data import tum
+    from cvo_slam_tpu_torch.frontend.pointcloud import create_pointcloud
+    records = tum.load_association(os.path.join(folder, "associate.txt"))
+    images = [tum.load_image(folder, r) for r in records[:2]]
+    clouds = {}
+    for cap in caps:
+        fp = FrontendParams(cloud_capacity=cap)
+        pcs = [create_pointcloud(im.bgr, im.gray, im.depth, cam, fp)
+               for im in images]
+        print(f"CAP {cap}: {[pc.count for pc in pcs]} valid points",
+              flush=True)
+        clouds[cap] = [host_cloud_tensors(pc, "cuda") for pc in pcs]
+    return clouds
 
 
 def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
@@ -787,11 +906,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this run needs a "
                     "CUDA card")
-    from cvo_slam_tpu_torch.config import (CAMERA_PRESETS, FrontendParams,
-                                           SlamConfig)
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
     from cvo_slam_tpu_torch.cvo import cuda_build, kernels
-    from cvo_slam_tpu_torch.data import synthetic, tum
-    from cvo_slam_tpu_torch.frontend.pointcloud import create_pointcloud
+    from cvo_slam_tpu_torch.data import synthetic
 
     # -- phase 1: card and build
     card = card_line()
@@ -810,7 +927,8 @@ def main() -> int:
     report = {k.name: dict(name=k.name, route="cuda",
                            source=f"cvo_slam_tpu_torch/csrc/{k.source}",
                            replaces=k.replaces, launches=0, max_abs_err=0.0,
-                           ms=None, plain_ms=None, bound_ms=None,
+                           ms=None, device_ms=None, plain_ms=None,
+                           bound_ms=None,
                            bound_by=None, library_ms=None, times_by_ell={})
               for k in kernels.KERNELS}
     cam = CAMERA_PRESETS["TUM1"]
@@ -822,16 +940,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         # -- phase 2: kernel checks on frames 0 and 1 of the sequence
-        records = tum.load_association(os.path.join(folder, "associate.txt"))
-        images = [tum.load_image(folder, r) for r in records[:2]]
-        clouds = {}
-        for cap in CAPS:
-            fp = FrontendParams(cloud_capacity=cap)
-            pcs = [create_pointcloud(im.bgr, im.gray, im.depth, cam, fp)
-                   for im in images]
-            print(f"CAP {cap}: {[pc.count for pc in pcs]} valid points",
-                  flush=True)
-            clouds[cap] = [host_cloud_tensors(pc, "cuda") for pc in pcs]
+        clouds = first_pair_clouds(folder, cam)
         kernel_checks(clouds, p, report)
         flow_step_checks(clouds, p, report)
         align_checks(clouds, p, report)

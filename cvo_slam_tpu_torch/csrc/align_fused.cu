@@ -9,29 +9,47 @@
 // A persistent cooperative kernel: the grid is at most as large as the
 // card can hold at once (occupancy x SMs), launched with
 // cudaLaunchCooperativeKernel, and every block loops over the work items
-// (row tile x column chunk) of both passes. Per iteration:
+// (row tile x column chunk, flow_step.cuh) of both passes. Per iteration:
 //   1. every block transforms the moving columns it stages, y = y0 R + Tt
 //      with Tt = -R^T T, with no global write;
-//   2. pass 1 (flow_step.cuh), partials, grid.sync();
+//   2. pass 1 (flow_step.cuh): the gate sweep, the keep bitmask and the
+//      flow partials; grid.sync();
 //   3. every block sums the flow partials in the same fixed order, so every
 //      block holds bit-identical omega, v and nnz;
-//   4. pass 2, partials, grid.sync();
+//   4. pass 2 over the set bits of the bitmask, partials, grid.sync();
 //   5. every block sums B..E and runs the scalar epilogue redundantly on
 //      thread 0: the smallest positive root of the step cubic (cvo.cpp:
 //      317-333), Exp_SEK3 (LieGroup.cpp:159-186), the se3 distance of the
 //      increment (cvo.cpp:94-104), both stop rules and the ell anneal
 //      (cvo.cpp:782, :804, :810-812). Every block reaches the same `done`,
 //      so no third barrier is needed: the next iteration's pass 1 writes
-//      flow partials that every block finished reading before step 4's
-//      barrier, and pass 2 writes step partials only after the next pass-1
-//      barrier.
+//      flow partials and bitmask words that every block finished reading
+//      before step 4's barrier, and pass 2 writes step partials only after
+//      the next pass-1 barrier.
 // The epilogue mirrors pallas_align.py:67-181 (and the plain ops/cubic,
 // ops/se3) with CUDA's acosf and cbrtf. Every tile is computed: the Pallas
 // kernel's tile skipping is left to a later optimisation (skipped tiles
 // hold no gated pair, so the result is the same).
 //
 // What bounds it: arithmetic, as flow_step.cu, times the iterations; the
-// clouds (~0.2 MB) stay in L2 across iterations.
+// clouds (~0.2 MB) and the bitmask (1.2 MB at CAP 3072) stay in L2.
+//
+// The design, against what held the first version back:
+//   1. the card is filled: the plan (cvo/kernels.plan_split) sizes the
+//      work items to the resident grid that align_fused_geometry reports
+//      (occupancy x SMs), so roughly every resident block has one item
+//      (576 items at CAP 3072, where the first version's 192 blocks left
+//      most of the card empty);
+//   2. the gate is tested once per iteration: pass 1 records the kept
+//      pairs in the bitmask and pass 2 walks only its set bits (0.14% of
+//      the pairs at ell 0.15), in a fixed order;
+//   3. the finalize is parallel: all threads of every block sum the
+//      partials, a fixed strided share each, then the block's tree; every
+//      block gets bit-identical sums;
+//   4. rows are register-blocked and column tiles packed and staged with
+//      double-buffered cp.async (flow_step.cuh);
+//   5. no tensor cores: the gate's d^2 must round as the FMA chain of the
+//      plain version, and the kept-pair sums are too sparse for an MMA.
 
 #include <cooperative_groups.h>
 
@@ -190,28 +208,24 @@ __device__ void epilogue(State& st, int k, const float* wv, int nnz_k,
     if (k > prm.anneal_iter[i]) st.ell = prm.anneal_value[i];
 }
 
-__global__ void __launch_bounds__(TILE)
-align_kernel(const float* __restrict__ x, const float* __restrict__ fx,
-             const unsigned char* __restrict__ mx,
-             const float* __restrict__ y0, const float* __restrict__ fy,
-             const unsigned char* __restrict__ my, int N, int M,
-             int n_chunks, const float* __restrict__ init, AlignParams prm,
+// at most 102 registers, so 5 blocks fit on an SM and the 576 work items at
+// CAP 3072 run at once on 132 SMs (unbounded, ptxas takes 128 registers and
+// 4 blocks per SM: 37.8 against 33.5 us per iteration on the H100)
+__global__ void __launch_bounds__(THREADS, 5)
+align_kernel(Clouds cl, Split sp, const float* __restrict__ init,
+             AlignParams prm, unsigned* __restrict__ bits,
              float* __restrict__ fpart, int* __restrict__ npart,
              float* __restrict__ spart, float* __restrict__ out_f,
              int* __restrict__ out_n) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ Cols s;
-  __shared__ float fbuf[TILE];
-  __shared__ int ibuf[TILE];
+  __shared__ Stage s;
+  __shared__ RowColours rows;
+  __shared__ Red red;
   __shared__ State st;
-  __shared__ float S[N_FLOW], wv[6], bcde[N_STEP];
+  __shared__ float wv[6], bcde[N_STEP];
   __shared__ int nnz_k;
 
   const int tid = threadIdx.x;
-  const int row_tiles = (N + TILE - 1) / TILE;
-  const int nt = (M + TILE - 1) / TILE;
-  const int per_chunk = (nt + n_chunks - 1) / n_chunks;
-  const int n_items = row_tiles * n_chunks;
   if (tid == 0) {
     for (int i = 0; i < 9; ++i) st.R[i] = init[i];
     for (int i = 0; i < 3; ++i) st.T[i] = init[9 + i];
@@ -229,24 +243,18 @@ align_kernel(const float* __restrict__ x, const float* __restrict__ fx,
       pose.Tt[i] = -(st.R[i] * st.T[0] + st.R[3 + i] * st.T[1]
                      + st.R[6 + i] * st.T[2]);
     const float ell = st.ell;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      const int t0 = (item / row_tiles) * per_chunk;
-      flow_item<true>(x, fx, mx, N, y0, fy, my, M, item % row_tiles, t0,
-                      min(t0 + per_chunk, nt), pose, ell, prm.k, s, fbuf,
-                      ibuf, fpart + item * N_FLOW, npart + item);
-    }
+    for (int item = blockIdx.x; item < sp.items; item += gridDim.x)
+      flow_item<true>(cl, sp, item, pose, ell, prm.k, s, rows, red, bits,
+                      fpart, npart);
     __threadfence();
     grid.sync();
-    finalize_flow(fpart, npart, n_items, prm.c, prm.d, S, wv, &nnz_k);
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      const int t0 = (item / row_tiles) * per_chunk;
-      step_item<true>(x, fx, mx, N, y0, fy, my, M, item % row_tiles, t0,
-                      min(t0 + per_chunk, nt), pose, ell, wv, wv + 3, prm.k,
-                      s, fbuf, spart + item * N_STEP);
-    }
+    finalize_flow(fpart, npart, sp.items, prm.c, prm.d, red, wv, &nnz_k);
+    for (int item = blockIdx.x; item < sp.items; item += gridDim.x)
+      step_item<true>(cl, sp, item, pose, ell, wv, wv + 3, prm.k, rows, red,
+                      bits, spart);
     __threadfence();
     grid.sync();
-    finalize_step(spart, n_items, bcde);
+    finalize_step(spart, sp.items, red, bcde);
     if (tid == 0) epilogue(st, k, wv, nnz_k, bcde, prm);
     __syncthreads();
     if (st.done) break;
@@ -260,44 +268,72 @@ align_kernel(const float* __restrict__ x, const float* __restrict__ fx,
   }
 }
 
+// the resident grid: blocks per SM of align_kernel and SMs; refuses a card
+// without cooperative launch and a kernel that fits no block on an SM
+cudaError_t resident(int* per_sm, int* sms) {
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, align_kernel,
+                                                      THREADS, 0);
+  if (err != cudaSuccess) return err;
+  return *per_sm < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
+}
+
 }  // namespace
 
+// Plain C entry point (loaded with ctypes): the geometry the wrapper plans
+// the split with. out (4 ints): resident blocks per SM of the align kernel,
+// SMs, rows per work item, columns per tile. Returns the CUDA error code.
+extern "C" int align_fused_geometry(int* out) {
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = resident(&per_sm, &sms);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = per_sm;
+  out[1] = sms;
+  out[2] = ROWS;
+  out[3] = CT;
+  return (int)cudaSuccess;
+}
+
 // Plain C entry point (loaded with ctypes): one cooperative launch on
-// `stream` for one alignment of the moving cloud y0/fy/my (M) against the
-// fixed cloud x/fx/mx (N). init (13 floats on the device): R0 (row-major),
-// T0, ell0. hf (host, 14 floats): log_ratio, d2ct, two_cl2, s2cs2,
-// sp_thres, c, d, eps, eps_2, min_step, max_step, the 3 anneal values;
-// hi (host, 4 ints): the 3 anneal iterations, max_iter. Scratch: fpart
-// n_chunks * ceil(N/128) * 12 floats, npart n_chunks * ceil(N/128) ints,
-// spart n_chunks * ceil(N/128) * 4 floats. out_f (13 floats): R, T, ell;
-// out_n (2 ints): iters, nnz. info (host, 3 ints): grid, blocks per SM,
-// SMs. Returns the CUDA error code (0 = success); a card without
-// cooperative launch, or a kernel that fits no block on an SM, is refused
-// before anything runs.
+// `stream` for one alignment of the moving cloud y0/fy/my (M, each 16-byte
+// aligned) against the fixed cloud x/fx/mx (N), over the split of `chunks`
+// chunks of per_chunk column tiles. init (13 floats on the device): R0
+// (row-major), T0, ell0. hf (host, 14 floats): log_ratio, d2ct, two_cl2,
+// s2cs2, sp_thres, c, d, eps, eps_2, min_step, max_step, the 3 anneal
+// values; hi (host, 4 ints): the 3 anneal iterations, max_iter. Scratch,
+// items = ceil(N/512) * chunks: bits ceil(M/32) * N words, fpart 6 * items
+// floats, npart items ints, spart 4 * items floats. out_f (13 floats): R,
+// T, ell; out_n (2 ints): iters, nnz. info (host, 4 ints): grid, blocks
+// per SM, SMs, work items. Returns the CUDA error code (0 = success); a
+// card without cooperative launch, or a kernel that fits no block on an
+// SM, is refused before anything runs.
 extern "C" int align_fused_launch(
     const float* x, const float* fx, const unsigned char* mx,
     const float* y0, const float* fy, const unsigned char* my, int N, int M,
-    int n_chunks, const float* init, const float* hf, const int* hi,
-    float* fpart, int* npart, float* spart, float* out_f, int* out_n,
-    int* info, cudaStream_t stream) {
-  if (N <= 0 || M <= 0 || n_chunks <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+    int chunks, int per_chunk, const float* init, const float* hf,
+    const int* hi, unsigned* bits, float* fpart, int* npart,
+    float* spart, float* out_f, int* out_n, int* info,
+    cudaStream_t stream) {
+  Split sp;
+  if (!make_split(N, M, chunks, per_chunk, sp))
+    return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)y0) | ((uintptr_t)fy) | ((uintptr_t)my)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = resident(&per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, align_kernel,
-                                                      TILE, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int n_items = ((N + TILE - 1) / TILE) * n_chunks;
-  const int grid = n_items < per_sm * sms ? n_items : per_sm * sms;
+  const int grid = sp.items < per_sm * sms ? sp.items : per_sm * sms;
   info[0] = grid;
   info[1] = per_sm;
   info[2] = sms;
+  info[3] = sp.items;
 
   AlignParams prm{};
   prm.k.log_ratio = hf[0];
@@ -316,13 +352,13 @@ extern "C" int align_fused_launch(
     prm.anneal_iter[i] = hi[i];
   }
   prm.max_iter = hi[3];
-  void* args[] = {(void*)&x,     (void*)&fx,    (void*)&mx,   (void*)&y0,
-                  (void*)&fy,    (void*)&my,    (void*)&N,    (void*)&M,
-                  (void*)&n_chunks, (void*)&init, (void*)&prm,
-                  (void*)&fpart, (void*)&npart, (void*)&spart,
-                  (void*)&out_f, (void*)&out_n};
+  Clouds cl{x, fx, mx, y0, fy, my};
+  void* args[] = {(void*)&cl,    (void*)&sp,    (void*)&init,
+                  (void*)&prm,   (void*)&bits,  (void*)&fpart,
+                  (void*)&npart, (void*)&spart, (void*)&out_f,
+                  (void*)&out_n};
   err = cudaLaunchCooperativeKernel((const void*)align_kernel, dim3(grid),
-                                    dim3(TILE), args, 0, stream);
+                                    dim3(THREADS), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -57,6 +57,16 @@ __device__ __forceinline__ float ident_d2(float rsq, float csq,
   return fmaxf(rsq + csq - 2.f * col_dot(r, col, k, dim), 0.f);
 }
 
+// the same distance for a column held in registers (c[0..dim-1]): the
+// rounding of ident_d2, operation by operation
+__device__ __forceinline__ float ident_d2_reg(float rsq, float csq,
+                                              const float* r, const float* c,
+                                              int dim) {
+  float dot = r[0] * c[0];
+  for (int q = 1; q < dim; ++q) dot = __fmaf_rn(r[q], c[q], dot);
+  return fmaxf(rsq + csq - 2.f * dot, 0.f);
+}
+
 // scale * exp(max(arg, -20)): the clamp is exact for every gated pair
 // (the gates bound the exponent at ~-5) and keeps gate-free values finite
 __device__ __forceinline__ float clamped_kernel(float scale, float arg) {
@@ -87,6 +97,29 @@ __device__ int block_count(int v, int* buf) {
   const int r = buf[0];
   __syncthreads();
   return r;
+}
+
+// fixed-order reduction of NV values per thread over a block of NWARPS
+// full warps: a butterfly of shuffles inside each warp (every lane ends
+// with the same bits: IEEE addition commutes exactly), then the warps' sums,
+// last warp first (the order of flow_step.cuh's sums). buf: NWARPS * NV
+// slots; out[q] is valid for every thread on return.
+template <int NWARPS, typename T, int NV>
+__device__ void block_sum_n(T (&v)[NV], T* buf, T* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < NV; ++q)
+    for (int o = 16; o > 0; o >>= 1)
+      v[q] += __shfl_xor_sync(0xffffffffu, v[q], o);
+  if (lane == 0)
+    for (int q = 0; q < NV; ++q) buf[warp * NV + q] = v[q];
+  __syncthreads();
+  if ((int)threadIdx.x < NV) {
+    T s = buf[(NWARPS - 1) * NV + threadIdx.x];
+    for (int w = NWARPS - 2; w >= 0; --w) s += buf[w * NV + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
 }
 
 }  // namespace

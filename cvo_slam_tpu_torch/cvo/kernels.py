@@ -24,6 +24,12 @@ version.
     under pallas and pallas_iter); its plain version is engine.align_loop
     over the plain flow_and_step.
 
+The per-pair kernels (flow_and_step, flow, step_coeffs, align_fused) split
+their pairs into work items, a row tile against a chunk of 32-column tiles;
+`plan_split` sizes the items to the card's resident grid, which the
+kernel's library reports (`*_geometry`). Their pass 1 records the kept
+pairs in a bitmask (`pack_keep_bits` is its layout) that pass 2 walks.
+
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel (building it on first use) or raises. Each
 wrapper counts its launches in `KernelInfo.launches`, and nowhere else.
@@ -32,7 +38,9 @@ wrapper counts its launches in `KernelInfo.launches`, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -42,6 +50,7 @@ from . import cuda_build
 
 N_CHUNKS = 8     # split of the column range across blocks (fills 132 SMs)
 _TILE = 128      # rows per block, as in csrc/
+KEEP_WORD = 32   # columns per word of the keep bitmask
 
 
 @dataclass
@@ -107,6 +116,142 @@ def _stream(device):
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _check_staged(y, fy, my):
+    """The per-pair kernels stage the moving cloud with 16-byte copies."""
+    for name, t in (("moving positions", y), ("moving features", fy),
+                    ("moving mask", my)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# the work split of the per-pair kernels, and their keep bitmask
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """Work items of a per-pair launch: row tile `rt` (varies fastest)
+    against column tiles [t0, t1) of one chunk, as csrc/flow_step.cuh's
+    item_of reads them."""
+    n: int
+    m: int
+    rows_per_item: int
+    cols_per_tile: int
+    row_tiles: int
+    col_tiles: int
+    chunks: int
+    tiles_per_chunk: int
+
+    @property
+    def items(self) -> int:
+        return self.row_tiles * self.chunks
+
+    def item(self, i: int) -> Tuple[int, int, int]:
+        rt, chunk = i % self.row_tiles, i // self.row_tiles
+        t0 = chunk * self.tiles_per_chunk
+        return rt, t0, min(t0 + self.tiles_per_chunk, self.col_tiles)
+
+    def scratch(self) -> Dict[str, Tuple[int, ...]]:
+        """Shapes of the launch's scratch: flow partials (f32, quantity-
+        major), keep counts (i32), step partials (f32) and the keep bitmask
+        (i32 words, one per row and column tile)."""
+        return dict(fpart=(6, self.items), npart=(self.items,),
+                    spart=(4, self.items), bits=(self.col_tiles, self.n))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_split(n: int, m: int, resident: int, rows_per_item: int,
+               cols_per_tile: int) -> SplitPlan:
+    """The split of n rows x m columns for a card that holds `resident`
+    blocks at once: the column tiles per chunk that minimise waves x tiles
+    per item (waves: ceil(items / resident)), the finer split on a tie;
+    chunks of equal tile counts, none empty. Cached: the per-iteration
+    wrappers ask for the same few splits every call."""
+    if n <= 0 or m <= 0 or resident <= 0:
+        raise ValueError(f"no split of {n} x {m} on {resident} blocks")
+    row_tiles = -(-n // rows_per_item)
+    col_tiles = -(-m // cols_per_tile)
+
+    def n_chunks(per):
+        return -(-col_tiles // per)
+
+    per_chunk = min(range(1, col_tiles + 1), key=lambda per: (
+        -(-row_tiles * n_chunks(per) // resident) * per, per))
+    return SplitPlan(n, m, rows_per_item, cols_per_tile, row_tiles,
+                     col_tiles, n_chunks(per_chunk), per_chunk)
+
+
+def pack_keep_bits(keep):
+    """(N, M) bool keep -> the kernels' keep bitmask, (ceil(M/32), N) int32:
+    bit b of word [t, i] is keep[i, 32 t + b]."""
+    n, m = keep.shape
+    w = -(-m // KEEP_WORD)
+    k = torch.zeros((n, w * KEEP_WORD), dtype=torch.int64,
+                    device=keep.device)
+    k[:, :m] = keep
+    shifts = torch.arange(KEEP_WORD, device=keep.device)
+    words = (k.reshape(n, w, KEEP_WORD) << shifts).sum(-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.T.to(torch.int32).contiguous()
+
+
+def unpack_keep_bits(bits, m: int):
+    """The (N, M) bool keep mask of a keep bitmask (pack_keep_bits)."""
+    words = bits.to(torch.int64).T & 0xFFFFFFFF
+    shifts = torch.arange(KEEP_WORD, device=bits.device)
+    return ((words[:, :, None] >> shifts) & 1).reshape(
+        words.shape[0], -1)[:, :m].bool()
+
+
+def keep_bits_plain(x, y, fx, fy, mx, my, ell, p: CvoParams):
+    """The keep bitmask of pairwise.cvo_kernel: what pass 1 of the per-pair
+    kernels records."""
+    _, keep = pairwise.cvo_kernel(x, y, fx, fy, mx, my,
+                                  _as_ell(ell, x.device), p)
+    return pack_keep_bits(keep)
+
+
+_geometry_cache: Dict[Tuple[str, int], Tuple[int, int, int, int]] = {}
+
+
+def _geometry(kernel: KernelInfo, symbol: str, device):
+    """(blocks per SM, SMs, rows per item, columns per tile) of a per-pair
+    kernel on `device`, from its library's query (once per device)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (symbol, index)
+    if key not in _geometry_cache:
+        fn = getattr(cuda_build.load(kernel.source), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(index):
+            _raise_on(fn(out), kernel.name)
+        if out[3] != KEEP_WORD:
+            raise RuntimeError(f"{kernel.name}: {out[3]} columns per tile, "
+                               f"the bitmask takes {KEEP_WORD}")
+        _geometry_cache[key] = tuple(out)
+    return _geometry_cache[key]
+
+
+def _plan_for(kernel: KernelInfo, symbol: str, n, m, device):
+    per_sm, sms, rows, cols = _geometry(kernel, symbol, device)
+    return plan_split(n, m, per_sm * sms, rows, cols), per_sm, sms
+
+
+def _scratch(plan: SplitPlan, device, bits=None, with_bits=True):
+    """The scratch of a per-pair launch (plan.scratch()'s shapes): the keep
+    bitmask (`bits` when given), the f32 flow partials, the counts and the
+    f32 step partials."""
+    shapes = plan.scratch()
+    if bits is None and with_bits:
+        bits = torch.empty(shapes["bits"], dtype=torch.int32, device=device)
+    return (bits,
+            torch.empty(shapes["fpart"], dtype=torch.float32, device=device),
+            torch.empty(shapes["npart"], dtype=torch.int32, device=device),
+            torch.empty(shapes["spart"], dtype=torch.float32, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -355,37 +500,47 @@ def flow_and_step_plain(x, y, fx, fy, mx, my, ell, p: CvoParams):
                                   _as_ell(ell, x.device), p)
 
 
-def _flow_step_cuda(mode, x, y, fx, fy, mx, my, ell, p: CvoParams, wv=None):
-    """One launch of csrc/flow_step.cu in `mode`; returns (out_f (10,):
-    omega, v, B, C, D, E; out_n (1,): nnz), each holding its mode's
-    outputs."""
+def _flow_step_cuda(mode, x, y, fx, fy, mx, my, ell, p: CvoParams, wv=None,
+                    keep_bits=None, launch_info=None):
+    """One call of csrc/flow_step.cu in `mode`; returns (out_f (10,):
+    omega, v, B, C, D, E; out_n (3,): nnz and the passes' tickets), each
+    holding its mode's outputs. keep_bits: an int32 (ceil(M/32), N) tensor
+    that receives pass 1's keep bitmask (modes 0, 1)."""
     dev = x.device
     n, m = x.shape[0], y.shape[0]
     _check_cloud("fixed", x, fx, mx, n, dev)
     _check_cloud("moving", y, fy, my, m, dev)
+    _check_staged(y, fy, my)
     if wv is not None:
         _check("omega, v", wv, torch.float32, (6,), dev)
+    if keep_bits is not None:
+        _check("keep_bits", keep_bits, torch.int32, (-(-m // KEEP_WORD), n),
+               dev)
     ell = _as_ell(ell, dev).contiguous()
-    lib = cuda_build.load(FLOW_AND_STEP.source)
-    fn = lib.flow_and_step_launch
+    plan, per_sm, sms = _plan_for(FLOW_AND_STEP, "flow_step_geometry", n, m,
+                                  dev)
+    fn = cuda_build.load(FLOW_AND_STEP.source).flow_and_step_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
-                   + [ctypes.c_void_p] * 7)
-    items = N_CHUNKS * -(-n // _TILE)
-    fpart = torch.empty((items, 12), dtype=torch.float32, device=dev)
-    npart = torch.empty((items,), dtype=torch.int32, device=dev)
-    spart = torch.empty((items, 4), dtype=torch.float32, device=dev)
+                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 7
+                   + [ctypes.c_void_p] * 8)
+    bits, fpart, npart, spart = _scratch(plan, dev, keep_bits,
+                                         mode != _STEP_ONLY)
     out_f = torch.zeros((10,), dtype=torch.float32, device=dev)
-    out_n = torch.zeros((1,), dtype=torch.int32, device=dev)
+    out_n = torch.zeros((3,), dtype=torch.int32, device=dev)
     err = fn(mode, _ptr(x), _ptr(fx), _ptr(mx), _ptr(y), _ptr(fy), _ptr(my),
-             _ptr(ell), n, m, N_CHUNKS, pairwise.log_sp_ratio(p),
-             pairwise.d2_color_threshold(p), 2.0 * p.c_ell * p.c_ell,
-             _s2cs2(p), p.sp_thres, p.c, p.d,
+             _ptr(ell), n, m, plan.chunks, plan.tiles_per_chunk,
+             pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
+             2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d,
              ctypes.c_void_p(None if wv is None else wv.data_ptr()),
+             ctypes.c_void_p(None if bits is None else bits.data_ptr()),
              _ptr(fpart), _ptr(npart), _ptr(spart), _ptr(out_f),
              _ptr(out_n), _stream(dev))
     _raise_on(err, FLOW_AND_STEP.name)
+    if launch_info is not None:
+        launch_info.update(grid=plan.items, blocks_per_sm=per_sm, sms=sms,
+                           chunks=plan.chunks,
+                           tiles_per_chunk=plan.tiles_per_chunk)
     return out_f, out_n
 
 
@@ -405,10 +560,15 @@ def step_coeffs_cuda(x, y, fx, fy, mx, my, omega, v, ell, p: CvoParams):
     return out_f[6], out_f[7], out_f[8], out_f[9]
 
 
-def flow_and_step_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams):
-    """Both passes in one launch: same function and tuple as
-    flow_and_step_plain."""
-    out_f, out_n = _flow_step_cuda(_BOTH, x, y, fx, fy, mx, my, ell, p)
+def flow_and_step_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams,
+                       keep_bits=None, launch_info=None):
+    """Both passes in one call (two launches): same function and tuple as
+    flow_and_step_plain. keep_bits (int32 (ceil(M/32), N)) receives the
+    keep bitmask of pass 1; a launch_info dict receives the grid, blocks
+    per SM, SMs and the split."""
+    out_f, out_n = _flow_step_cuda(_BOTH, x, y, fx, fy, mx, my, ell, p,
+                                   keep_bits=keep_bits,
+                                   launch_info=launch_info)
     FLOW_AND_STEP.launches += 1
     return (out_f[0:3], out_f[3:6], out_n[0], out_f[6], out_f[7], out_f[8],
             out_f[9])
@@ -461,11 +621,12 @@ def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
                      launch_info: dict | None = None):
     """The cooperative align kernel: same function and tuple as
     align_fused_plain, in one launch. A `launch_info` dict receives the
-    launch's grid, blocks per SM and SM count."""
+    launch's grid, blocks per SM, SM count, work items and the split."""
     dev = x.device
     n, m = x.shape[0], y0.shape[0]
     _check_cloud("fixed", x, fx, mx, n, dev)
     _check_cloud("moving", y0, fy, my, m, dev)
+    _check_staged(y0, fy, my)
     _check("R0", R0, torch.float32, (3, 3), dev)
     _check("T0", T0, torch.float32, (3,), dev)
     if len(p.ell_anneal_iters) != 3 or len(p.ell_anneal_values) != 3:
@@ -477,28 +638,28 @@ def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
         2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d, p.eps,
         p.eps_2, p.min_step, p.max_step, *p.ell_anneal_values)
     hi = (ctypes.c_int * 4)(*p.ell_anneal_iters, p.max_iter)
-    info = (ctypes.c_int * 3)()
-    lib = cuda_build.load(ALIGN.source)
-    fn = lib.align_fused_launch
+    info = (ctypes.c_int * 4)()
+    plan, _, _ = _plan_for(ALIGN, "align_fused_geometry", n, m, dev)
+    fn = cuda_build.load(ALIGN.source).align_fused_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
                       ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_void_p] * 5
+                   + [ctypes.c_void_p] * 6
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-    items = N_CHUNKS * -(-n // _TILE)
-    fpart = torch.empty((items, 12), dtype=torch.float32, device=dev)
-    npart = torch.empty((items,), dtype=torch.int32, device=dev)
-    spart = torch.empty((items, 4), dtype=torch.float32, device=dev)
+    bits, fpart, npart, spart = _scratch(plan, dev)
     out_f = torch.empty((13,), dtype=torch.float32, device=dev)
     out_n = torch.empty((2,), dtype=torch.int32, device=dev)
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(y0), _ptr(fy), _ptr(my), n,
-             m, N_CHUNKS, _ptr(init), hf, hi, _ptr(fpart), _ptr(npart),
-             _ptr(spart), _ptr(out_f), _ptr(out_n), info, _stream(dev))
+             m, plan.chunks, plan.tiles_per_chunk, _ptr(init), hf, hi,
+             _ptr(bits), _ptr(fpart), _ptr(npart), _ptr(spart), _ptr(out_f),
+             _ptr(out_n), info, _stream(dev))
     _raise_on(err, ALIGN.name)
     ALIGN.launches += 1
     if launch_info is not None:
-        launch_info.update(grid=info[0], blocks_per_sm=info[1], sms=info[2])
+        launch_info.update(grid=info[0], blocks_per_sm=info[1], sms=info[2],
+                           items=info[3], chunks=plan.chunks,
+                           tiles_per_chunk=plan.tiles_per_chunk)
     return (out_f[:9].reshape(3, 3), out_f[9:12], out_f[12], out_n[0],
             out_n[1])
 

@@ -9,6 +9,7 @@ The CUDA kernels run only on the card: the tests that launch them skip
 here, and chip_smoke.py holds each against its plain version at the main
 path's shapes."""
 
+import dataclasses
 import os
 import shutil
 
@@ -477,6 +478,26 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         kernels.align_fused(x.to("meta"), fx, mx, y, fy, my, torch.eye(3),
                             torch.zeros(3), 0.1, TP)
+    # the keep bitmask: int32 words, (ceil(M/32), N)
+    with pytest.raises(ValueError):
+        kernels.flow_and_step_cuda(x, y, fx, fy, mx, my, 0.1, TP,
+                                   keep_bits=torch.zeros((4, 100),
+                                                         dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.flow_and_step_cuda(x, y, fx, fy, mx, my, 0.1, TP,
+                                   keep_bits=torch.zeros((100, 4),
+                                                         dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.flow_and_step_cuda(x, y, fx, fy, mx, my, 0.1, TP,
+                                   keep_bits=torch.zeros((4, 100)))
+    # the moving cloud is staged with 16-byte copies: a view 4 bytes into
+    # its storage is refused, by both per-pair wrappers
+    y_off = torch.empty(y.numel() + 1)[1:].view_as(y).copy_(y)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.flow_and_step_cuda(x, y_off, fx, fy, mx, my, 0.1, TP)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.align_fused_cuda(x, fx, mx, y_off, fy, my, torch.eye(3),
+                                 torch.zeros(3), 0.1, TP)
 
 
 # -- the build ---------------------------------------------------------------
@@ -510,20 +531,49 @@ def _need_card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cap", [256, 250])
-def test_flow_step_cuda_matches_plain(cap):
+def test_flow_step_cuda_matches_plain(cap, monkeypatch):
     """On a card: flow_and_step, flow and step_coeffs against their plain
-    versions at the CPU parity bars."""
+    versions at the CPU parity bars; pass 1's keep bitmask equal to
+    keep_bits_plain bit for bit; two launches bitwise equal; a split with
+    every column tile in one item (the double-buffered staging, which the
+    plan's one tile per item does not reach) gives the same nnz and
+    bitmask."""
     _need_card()
     x, y, fx, fy, mx, my = [a.cuda() for a in _port_args(
         _clouds(7, cap=cap, n=230, m=210))]
+    words = (-(-cap // 32), cap)
     for ell in (0.15, 0.06):
-        got = kernels.flow_and_step(x, y, fx, fy, mx, my, ell, TP)
+        bits = torch.empty(words, dtype=torch.int32, device="cuda")
+        got = kernels.flow_and_step_cuda(x, y, fx, fy, mx, my, ell, TP,
+                                         keep_bits=bits)
         want = kernels.flow_and_step_plain(x, y, fx, fy, mx, my, ell, TP)
         assert int(got[2]) == int(want[2])
+        assert torch.equal(bits, kernels.keep_bits_plain(
+            x, y, fx, fy, mx, my, ell, TP))
         for g, w in zip(got[:2], want[:2]):
             _close(g.cpu(), w.cpu(), 2e-4, 1e-6, "omega, v")
         for g, w in zip(got[3:], want[3:]):
             _close(g.cpu(), w.cpu(), 2e-3, 1e-8, "B..E")
+        again = kernels.flow_and_step_cuda(x, y, fx, fy, mx, my, ell, TP)
+        for g, w in zip(again, got):
+            assert torch.equal(g, w)
+        plan_for = kernels._plan_for
+
+        def one_item_per_row_tile(*a):
+            plan, per_sm, sms = plan_for(*a)
+            return dataclasses.replace(plan, chunks=1, tiles_per_chunk=(
+                plan.col_tiles)), per_sm, sms
+
+        with monkeypatch.context() as m:
+            m.setattr(kernels, "_plan_for", one_item_per_row_tile)
+            bits1, info = torch.empty_like(bits), {}
+            one = kernels.flow_and_step_cuda(x, y, fx, fy, mx, my, ell, TP,
+                                             keep_bits=bits1,
+                                             launch_info=info)
+        assert info["grid"] == 1 and info["tiles_per_chunk"] == words[0]
+        assert int(one[2]) == int(want[2]) and torch.equal(bits1, bits)
+        for g, w in zip(one[3:], want[3:]):
+            _close(g.cpu(), w.cpu(), 2e-3, 1e-8, "B..E, one item")
         o, v, n = kernels.flow(x, y, fx, fy, mx, my, ell, TP)
         assert int(n) == int(want[2])
         for g, w in zip(kernels.step_coeffs(x, y, fx, fy, mx, my, o, v, ell,
@@ -535,7 +585,7 @@ def test_flow_step_cuda_matches_plain(cap):
 def test_align_fused_cuda_matches_plain():
     """On a card: the cooperative align kernel against its plain version on
     the megakernel fixture: iterations within 3, ell equal, transform within
-    1e-4."""
+    1e-4; two launches bitwise equal."""
     _need_card()
     fixed_np, moving_np, _ = _megakernel_clouds()
     x, fx, mx = [a.cuda() for a in _torch(fixed_np)]
@@ -543,9 +593,11 @@ def test_align_fused_cuda_matches_plain():
     args = (x, fx, mx, y, fy, my, torch.eye(3, device="cuda"),
             torch.zeros(3, device="cuda"), torch.tensor(0.15, device="cuda"),
             TP)
-    R, T, ell, iters, _ = kernels.align_fused(*args)
+    R, T, ell, iters, _ = got = kernels.align_fused(*args)
     Rp, Tp, ellp, itp, _ = kernels.align_fused_plain(*args)
     assert abs(int(iters) - int(itp)) <= 3
     assert float(ell) == float(ellp)
     _close(R.cpu(), Rp.cpu(), 0, 1e-4, "R")
     _close(T.cpu(), Tp.cpu(), 0, 1e-4, "T")
+    for g, w in zip(kernels.align_fused(*args), got):
+        assert torch.equal(g, w)

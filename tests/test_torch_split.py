@@ -1,0 +1,131 @@
+"""Port, per-pair kernels' bookkeeping (CPU): the work split that
+cvo_slam_tpu_torch.cvo.kernels.plan_split makes for csrc/flow_step.cu and
+csrc/align_fused.cu, and the keep bitmask that their pass 1 writes and
+pass 2 walks.
+
+The kernels read the split as csrc/flow_step.cuh's make_split and item_of
+do, which SplitPlan.item repeats; the card's runs (chip_smoke.py) hold the
+kernels' bitmask against keep_bits_plain bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+from cvo_slam_tpu.config import CvoParams
+from cvo_slam_tpu_torch.config import from_reference
+from cvo_slam_tpu_torch.cvo import kernels
+from cvo_slam_tpu_torch.ops import pairwise
+from tests.test_pairwise import make_clouds
+
+TP = from_reference(CvoParams())
+# rows per work item and columns per tile of csrc/flow_step.cuh
+ROWS, COLS = 512, 32
+# (N, M) pairs at the capacities the port runs, with N != M
+SHAPES = [(1, 129), (129, 1), (129, 3000), (3000, 3072), (3072, 3000),
+          (3072, 3072)]
+
+
+def _covered(plan):
+    """Every (row tile, column tile) of the plan's items, in item order."""
+    seen = []
+    for i in range(plan.items):
+        rt, t0, t1 = plan.item(i)
+        assert t0 < t1, f"item {i} is empty"
+        seen += [(rt, t) for t in range(t0, t1)]
+    return seen
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+@pytest.mark.parametrize("resident", [1, 7, 660, 10 ** 6])
+def test_plan_covers_every_tile_once(n, m, resident):
+    plan = kernels.plan_split(n, m, resident, ROWS, COLS)
+    assert plan.row_tiles == -(-n // ROWS) and plan.col_tiles == -(-m // COLS)
+    seen = _covered(plan)
+    assert len(seen) == len(set(seen)) == plan.row_tiles * plan.col_tiles
+    assert set(seen) == {(r, t) for r in range(plan.row_tiles)
+                         for t in range(plan.col_tiles)}
+    # the check of make_split: no empty chunk, every tile covered
+    assert (plan.chunks - 1) * plan.tiles_per_chunk < plan.col_tiles \
+        <= plan.chunks * plan.tiles_per_chunk
+    # the plan minimises waves x tiles per item, the finer split on a tie
+
+    def cost(per):
+        items = plan.row_tiles * -(-plan.col_tiles // per)
+        return -(-items // resident) * per
+
+    best = min(cost(per) for per in range(1, plan.col_tiles + 1))
+    assert cost(plan.tiles_per_chunk) == best
+    assert all(cost(per) > best for per in range(1, plan.tiles_per_chunk))
+    if resident >= plan.row_tiles * plan.col_tiles:
+        assert plan.chunks == plan.col_tiles
+    assert plan.scratch() == dict(fpart=(6, plan.items),
+                                  npart=(plan.items,),
+                                  spart=(4, plan.items),
+                                  bits=(-(-m // 32), n))
+
+
+@pytest.mark.parametrize("n,m", [(1, 129), (129, 3000), (3000, 3072),
+                                 (3072, 3000)])
+def test_scratch_of_the_plan(n, m):
+    """The wrapper's scratch: f32 flow and step partials, i32 counts and
+    bitmask words, in the plan's shapes; a caller's bitmask is used as
+    given, and mode 2 (no pass 1) takes none."""
+    plan = kernels.plan_split(n, m, 660, ROWS, COLS)
+    shapes = plan.scratch()
+    bits, fpart, npart, spart = kernels._scratch(plan, torch.device("cpu"))
+    for t, key, dtype in ((bits, "bits", torch.int32),
+                          (fpart, "fpart", torch.float32),
+                          (npart, "npart", torch.int32),
+                          (spart, "spart", torch.float32)):
+        assert t.dtype == dtype and tuple(t.shape) == shapes[key]
+    given = torch.zeros(shapes["bits"], dtype=torch.int32)
+    assert kernels._scratch(plan, torch.device("cpu"), given)[0] is given
+    assert kernels._scratch(plan, torch.device("cpu"),
+                            with_bits=False)[0] is None
+
+
+@pytest.mark.parametrize("resident", [660, 528])
+def test_plan_of_the_main_path(resident):
+    """CAP 3072 on a card that holds 5 or 4 blocks of the kernel on each of
+    132 SMs: 6 row tiles x 96 chunks of one tile, 576 work items (at 528
+    resident, two waves of one tile cost as much as one wave of two, and
+    the finer split wins the tie)."""
+    plan = kernels.plan_split(3072, 3072, resident, ROWS, COLS)
+    assert (plan.row_tiles, plan.chunks, plan.tiles_per_chunk,
+            plan.items) == (6, 96, 1, 576)
+    with pytest.raises(ValueError):
+        kernels.plan_split(0, 3072, 660, ROWS, COLS)
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 129, 3000])
+def test_keep_bits_layout(m):
+    rng = np.random.default_rng(m)
+    n = 37
+    keep = torch.as_tensor(rng.random((n, m)) < 0.3)
+    bits = kernels.pack_keep_bits(keep)
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == (-(-m // 32), n)
+    assert torch.equal(kernels.unpack_keep_bits(bits, m), keep)
+    words = bits.numpy().astype(np.int64) & 0xFFFFFFFF
+    for i, j in zip(rng.integers(0, n, 50), rng.integers(0, m, 50)):
+        assert (words[j // 32, i] >> (j % 32)) & 1 == int(keep[i, j])
+    # the bits past column m are zero
+    tail = -(-m // 32) * 32 - m
+    if tail:
+        assert not (words[-1] >> (32 - tail)).any()
+
+
+@pytest.mark.parametrize("cap,n,m,ell", [(256, 230, 210, 0.15),
+                                          (129, 129, 100, 0.06),
+                                          (300, 250, 300, 0.1)])
+def test_keep_bits_plain_is_cvo_kernel_keep(cap, n, m, ell):
+    x, fx, mx, y, fy, my = [torch.as_tensor(a) for a in
+                            make_clouds(5, n, m, cap=cap)]
+    bits = kernels.keep_bits_plain(x, y, fx, fy, mx, my, ell, TP)
+    _, keep = pairwise.cvo_kernel(x, y, fx, fy, mx, my, torch.tensor(ell),
+                                  TP)
+    assert keep.any()
+    assert torch.equal(kernels.unpack_keep_bits(bits, cap), keep)
+    # the bitmask's count is the flow pass's nnz
+    _, _, nnz = kernels.flow_plain(x, y, fx, fy, mx, my, ell, TP)
+    unpacked = kernels.unpack_keep_bits(bits, cap)
+    assert int(unpacked.sum()) == int(nnz)
