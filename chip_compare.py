@@ -13,16 +13,20 @@ git-ignored directory. Host-bound times move by tens of percent between
 machines, so compare two commits in one call, in turns: parent, change,
 change, parent.
 
-kernels: the per-pair kernels of the package under ROOT, built from its
-csrc/: ptxas's registers and the device time (torch.profiler) of
-flow_and_step, flow and step_coeffs at CAP 3072 (frames 0 -> 1 of
-chip_smoke's sequence, ell 0.15 and 0.06; nnz checked against the plain
+kernels: the kernels of the package under ROOT, built from its csrc/:
+ptxas's registers and the device time (torch.profiler) with the kernel
+launches per call of the moment kernel, pair stats (with and without
+moments, rows the moving cloud under chip_smoke's TWIST), flow_and_step,
+flow and step_coeffs at CAP 3072 (frames 0 -> 1 of chip_smoke's sequence,
+ell 0.15 and 0.06; nnz and the pair count checked against the plain
 version) and of align_fused (ell 0.15 from the identity), with its
 iterations and launch; then, for each of the sequence's first N_PAIRS
 frame pairs k -> k + 1 at CAP 3072, align_fused's iterations and end
 transform against its plain version's (the whole-run gap: the stop rule
 and the sparsification gate turn last-bit differences of the sums into
-different iteration counts). Run several in one call to compare them.
+different iteration counts); last, chip_smoke's phase 3 (tracking under
+pallas_mom) with its iterations per alignment. Run several in one call to
+compare them.
 
 Both print a result line per phase and exit non-zero without a CUDA card.
 """
@@ -36,9 +40,13 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# the per-pair kernels as torch.profiler names them, in this tree and in
-# its parent (which had one-block finalize kernels)
+# the kernels as torch.profiler names them, in this tree and in the trees
+# before it (one-block finalize kernels of the per-pair passes; the moment
+# kernel's chunk reduction; pair stats through the suite's passes 2 and 3)
 PASS_NAMES = ("flow_pass", "step_pass", "flow_finalize", "step_finalize")
+MOMENT_NAMES = ("moment_keep_pass", "moment_sum_pass", "moment_pass",
+                "moment_reduce")
+PAIR_STATS_NAMES = ("pair_stats_sweep", "pair_stats_pass", "suite_")
 N_PAIRS = 6      # frame pairs of the whole-run gap
 
 
@@ -98,6 +106,7 @@ def kernels_mode(root: str) -> int:
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
     from cvo_slam_tpu_torch.cvo import cuda_build, kernels
     from cvo_slam_tpu_torch.data import synthetic
+    from cvo_slam_tpu_torch.ops import pairwise, se3
     if not kernels.__file__.startswith(root):
         raise RuntimeError(f"imported {kernels.__file__}, not under {root}")
     tmp = tempfile.mkdtemp(prefix="chip_compare_")
@@ -107,17 +116,39 @@ def kernels_mode(root: str) -> int:
                       for line in cuda_build.build_report.get(
                           "ptxas", {}).get(src, "").splitlines()
                       if "registers" in line]
-                for src in ("flow_step.cu", "align_fused.cu")}
+                for src in ("moment_flow_step.cu", "pair_stats.cu",
+                            "flow_step.cu", "align_fused.cu")}
 
         cam, p = CAMERA_PRESETS["TUM1"], SlamConfig.default_shipped().cvo
         seq = os.path.join(tmp, "seq")
-        synthetic.make_sequence(seq, cam, n_frames=N_PAIRS + 1)
-        clouds = _sequence_clouds(cs, seq, cam, cs.CAPS[0])
+        gt = synthetic.make_sequence(seq, cam, n_frames=cs.N_FRAMES)
+        clouds = _sequence_clouds(cs, seq, cam, cs.CAPS[0])[:N_PAIRS + 1]
         (x, fx, mx), (y, fy, my) = clouds[:2]
         args = (x, y, fx, fy, mx, my)
+        _, U = pairwise.step_moment_basis(x, mx)
+        U = U.contiguous()
+        yt = se3.transform_points(se3.exp_se3(torch.tensor(
+            cs.TWIST, device="cuda")), y).contiguous()
         ms = {}
         for ell_v in cs.ELLS:
             ell = torch.tensor(ell_v, device="cuda")
+            if int(kernels.moment_pass_cuda(*args, U, ell, p)[1]) \
+                    != int(kernels.moment_pass_plain(*args, U, ell, p)[1]):
+                raise AssertionError(f"moment nnz differs from the plain "
+                                     f"version at ell {ell_v}")
+            ms[f"moment {ell_v}"] = cs.device_profile(
+                lambda: kernels.moment_pass_cuda(*args, U, ell, p),
+                MOMENT_NAMES)
+            for mom in (False, True):
+                stats = (yt, fy, my, x, fx, mx, ell, p, mom)
+                if float(kernels.pair_stats_cuda(*stats)[1]) \
+                        != float(kernels.pair_stats_plain(*stats)[1]):
+                    raise AssertionError(f"pair_stats count differs from the "
+                                         f"plain version at ell {ell_v}")
+                ms[f"pair_stats{' moments' if mom else ''} {ell_v}"] = \
+                    cs.device_profile(
+                        lambda: kernels.pair_stats_cuda(*stats),
+                        PAIR_STATS_NAMES)
             want = kernels.flow_and_step_plain(*args, ell, p)
             if int(kernels.flow_and_step_cuda(*args, ell, p)[2]) \
                     != int(want[2]):
@@ -131,7 +162,7 @@ def kernels_mode(root: str) -> int:
                     *args, want[0], want[1], ell, p),
             }
             for k, fn in calls.items():
-                ms[f"{k} {ell_v}"] = cs.device_time_ms(fn, PASS_NAMES)
+                ms[f"{k} {ell_v}"] = cs.device_profile(fn, PASS_NAMES)
         def align_args(k):
             return clouds[k] + clouds[k + 1] + (
                 torch.eye(3, device="cuda"), torch.zeros(3, device="cuda"),
@@ -149,11 +180,15 @@ def kernels_mode(root: str) -> int:
             dt, ang = cs.transform_gap((R, T), (Rp, Tp))
             gaps.append(f"{k}->{k + 1}: {int(it)} vs {int(itp)} iterations, "
                         f"{dt:.2e} m, {ang:.2e} rad")
-        print(f"kernels of {root} on {cs.card_line()}: registers {regs}; "
-              f"device ms {ms}; align_fused {t:.4f} ms, {iters + 1} "
+        card = cs.card_line()
+        print(f"kernels of {root} on {card}: registers {regs}; (device ms, "
+              f"launches per call) {ms}; align_fused {t:.4f} ms, {iters + 1} "
               f"iterations, {t / (iters + 1):.4f} ms per iteration, launch "
               f"{launch}; whole-run gap to the plain version, CAP "
               f"{cs.CAPS[0]}: {'; '.join(gaps)}", flush=True)
+        report = {k.name: dict(name=k.name, launches=0)
+                  for k in kernels.KERNELS}
+        cs.tracking(seq, gt, report, card, "pallas_mom")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -13,8 +13,10 @@ Phases; any failure exits non-zero:
      CAP 3000, ell in {0.15, 0.06}; bars: nnz, counts and inliers exact;
      the moment matrix Mom within 1e-5 of each column's max; omega, v, B, C
      (through the shared epilogue) rtol 2e-4 / atol 1e-5; the four sums
-     rtol 1e-4; G atol 1e-5 after scaling by max|G|. The quartic
-     coefficients D and E are printed, not held: the f32 epilogue
+     rtol 1e-4; G atol 1e-5 after scaling by max|G|; the moment kernel's
+     pass-1 keep bitmask equal bit for bit to the moment form's keep
+     (kernels.moment_keep_bits_plain) and two launches bitwise equal. The
+     quartic coefficients D and E are printed, not held: the f32 epilogue
      (ops/pairwise.flow_and_step_from_moments) amplifies a 1e-7 change of
      Mom up to 1e-3 (D) and 1e-1 (E) relative on these clouds, for the
      plain version as much as for the kernel (measured against an f64
@@ -23,7 +25,10 @@ Phases; any failure exits non-zero:
      device time (torch.profiler over 20 calls) beside the plain version's
      time and the bound;
      The pair-stats kernel is held the same way, with and without
-     moments: value and count, G and inliers. The per-pair align
+     moments: value and count, G and inliers, two launches bitwise equal.
+     The profiler's launches per call are held at most 2 for the moment
+     kernel and 1 for pair stats in each mode, and a kernel whose device
+     time the profiler does not see fails the phase. The per-pair align
      kernels: flow_and_step, flow and step_coeffs (csrc/flow_step.cu)
      against their plain versions at the same capacities and ells, nnz
      exact, omega and v rtol 2e-4 / atol 1e-6, B, C, D, E rtol 2e-3 (the
@@ -71,9 +76,14 @@ Phases; any failure exits non-zero:
   6. a JSON line with every kernel's numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
-The bound of a kernel is the larger of operations / 67 TFLOP/s (fp32 on
-the CUDA cores of an H100 SXM at 700 W) and bytes / 3.35 TB/s, with the
-operations counted from this run's data (pairs inside each gate). The
+The bound of a kernel is the larger of issued fp32 instructions / 33.5 T
+instructions/s (132 SMs x 128 lanes x 1.98 GHz on an H100 SXM at 700 W)
+and bytes / 3.35 TB/s, with the instructions counted from this run's data
+(pairs inside each gate). Every kernel compiles with -fmad=false, so each
+add, multiply, compare and fused multiply-add of an explicit FMA chain is
+one instruction (67 TFLOP/s would count an FMA as two operations and
+every other instruction as one, and so halve the bound of these kernels,
+which issue few FMAs). The
 per-pair align kernels need the gate sweep once per iteration (the kept
 pairs can be carried from one pass to the next), so it is counted once per
 flow_and_step call, beside each pass's work on the kept pairs. For
@@ -93,7 +103,9 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PEAK_FP32 = 67e12        # FLOP/s, H100 SXM, CUDA cores
+# fp32 instructions/s issued by the CUDA cores of an H100 SXM (132 SMs x
+# 128 lanes x 1.98 GHz boost clock); an FMA is one instruction
+PEAK_INSTR = 132 * 128 * 1.98e9
 PEAK_BYTES = 3.35e12     # B/s, H100 SXM HBM3
 N_FRAMES = 16
 # out-and-back SLAM sequence: SLAM_OUT frames out, then back, at 1.5x the
@@ -114,13 +126,13 @@ ALIGN_ITERS_SPREAD = 5
 # launches are those of the phase-2 checks
 CHECK_ONLY = ("flow", "step_coeffs")
 # the port's CUDA kernels as torch.profiler names them
-OUR_KERNELS = ("moment_pass", "moment_reduce", "suite_", "pair_stats_pass",
-               "flow_pass", "step_pass", "align_kernel")
+OUR_KERNELS = ("moment_keep_pass", "moment_sum_pass", "suite_",
+               "pair_stats_sweep", "flow_pass", "step_pass", "align_kernel")
 # the CUDA kernels each wrapper launches, as torch.profiler names them
 DEVICE_NAMES = {
-    "moment_flow_step": ("moment_pass", "moment_reduce"),
+    "moment_flow_step": ("moment_keep_pass", "moment_sum_pass"),
     "ip_suite": ("suite_",),
-    "pair_stats": ("pair_stats_pass", "suite_"),
+    "pair_stats": ("pair_stats_sweep",),
     "flow_and_step": ("flow_pass", "step_pass"),
     "flow": ("flow_pass",),
     "step_coeffs": ("step_pass",),
@@ -161,37 +173,51 @@ def cuda_time_ms(fn, reps=10, trials=5):
     return times[len(times) // 2]
 
 
-def device_time_ms(fn, names, reps=20):
-    """Mean device time per call of `fn` of the CUDA kernels whose names
-    contain one of `names`, from torch.profiler over `reps` calls after one
-    warm-up call: the kernels' own time, without the wrapper's host work
-    and launch gaps (which cuda_time_ms includes). None if the profiler saw
-    none of them."""
+def device_profile(fn, names, reps=20):
+    """(mean device time per call in ms, kernel launches per call) of the
+    CUDA kernels of `fn` whose names contain one of `names`, from
+    torch.profiler over `reps` calls after one warm-up call: the kernels'
+    own time, without the wrapper's host work and launch gaps (which
+    cuda_time_ms includes). The profiler now and then returns a window
+    without device events; such a window is taken again, up to 3 windows.
+    The time is None if the profiler saw none of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in e.name for k in names))
-    return us / reps / 1e3 if us else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in names)]
+        us = sum(e.time_range.elapsed_us() for e in ours)
+        if us:
+            return us / reps / 1e3, len(ours) / reps
+    return None, 0.0
 
 
-# -- operation and byte counts of each kernel's function ---------------------
-# Per pair, the operations the function needs (a fused multiply-add is 2):
+def device_time_ms(fn, names, reps=20):
+    """The device time per call of device_profile."""
+    return device_profile(fn, names, reps)[0]
+
+
+# -- instruction and byte counts of each kernel's function -------------------
+# Per pair, the fp32 instructions the function needs (-fmad=false: each
+# add, multiply and compare is one; an explicit fused multiply-add of an
+# FMA-chain dot is one):
 #   moment pass: geometric distance of a valid pair 9 (3 sub, 3 mul, 2 add,
 #   compare); colour distance of a pair inside the geometric gate 15; the
 #   joint kernel of a gated pair 8 (2 mul, add, neg, max, exp, mul,
-#   compare); a kept pair adds 35 multiply-adds into the moments (70).
-#   suite, each of the four pair sets: colour distance of a valid pair 14
-#   (the pre and post sets share one); geometric distance of a colour-gated
-#   pair 10; a gated pair 12 (two clamped exponentials, product, sum,
-#   count); a gated post pair adds W (1) and W U(x) (9 lift products + 13
-#   multiply-adds = 35).
+#   compare); a kept pair adds 35 multiplies and 35 adds into the moments.
+#   suite, each of the four pair sets: colour distance of a valid pair 10
+#   (a 5-term FMA-chain dot 5, the identity 3, clamp, compare; the pre and
+#   post sets share one); geometric distance of a colour-gated pair 8 (a
+#   3-term chain 3, the identity 3, clamp, compare); a gated pair 12 (two
+#   clamped exponentials, product, sum, count); a gated post pair adds W
+#   (1) and W U(x) (9 lift products, 13 multiplies and 13 adds = 35).
 
 def moment_counts(x, fx, mx, y, fy, my, ell, p):
     import torch
@@ -226,8 +252,8 @@ def suite_counts(x, fx, mx, y, fy, my, yt, ell, p):
         cg = valid & (d2c < d2ct)
         d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
         g = cg & (d2 < d2t)
-        ops += (14 * int(valid.sum()) if colour else 0) \
-            + 10 * int(cg.sum()) + 12 * int(g.sum())
+        ops += (10 * int(valid.sum()) if colour else 0) \
+            + 8 * int(cg.sum()) + 12 * int(g.sum())
         if k == 1:
             ops += 36 * int(g.sum())
     n, m = x.shape[0], y.shape[0]
@@ -237,17 +263,19 @@ def suite_counts(x, fx, mx, y, fy, my, yt, ell, p):
 
 
 def pair_stats_counts(xa, fa, ma, xb, fb, mb, ell, p, with_moments):
-    """One pair set of the suite: colour distance of a valid pair 14,
-    geometric distance of a colour-gated pair 10, a gated pair 12, and with
-    moments W U(xb) of a gated pair 36 (the suite's post set)."""
+    """One pair set of the suite, in instructions, its geometric gate
+    tested first (it passes far fewer pairs): geometric distance of a valid
+    pair 8, colour distance of a pair inside the geometric gate 10, a gated
+    pair 12, and with moments W U(xb) of a gated pair 36 (the suite's post
+    set)."""
     import torch
     from cvo_slam_tpu_torch.ops import pairwise
     valid = ma[:, None] & mb[None, :]
-    d2c = ((fa[:, None, :] - fb[None, :, :]) ** 2).sum(-1)
-    cg = valid & (d2c < pairwise.d2_color_threshold(p))
     d2 = ((xa[:, None, :] - xb[None, :, :]) ** 2).sum(-1)
-    g = cg & (d2 < pairwise.d2_threshold(torch.tensor(ell), p).item())
-    ops = 14 * int(valid.sum()) + 10 * int(cg.sum()) \
+    geo = valid & (d2 < pairwise.d2_threshold(torch.tensor(ell), p).item())
+    d2c = ((fa[:, None, :] - fb[None, :, :]) ** 2).sum(-1)
+    g = geo & (d2c < pairwise.d2_color_threshold(p))
+    ops = 8 * int(valid.sum()) + 10 * int(geo.sum()) \
         + (48 if with_moments else 12) * int(g.sum())
     n, m = xa.shape[0], xb.shape[0]
     nbytes = (n + m) * ((3 + 5) * 4 + 1) + 4 \
@@ -256,11 +284,12 @@ def pair_stats_counts(xa, fa, ma, xb, fb, mb, ell, p, with_moments):
 
 
 def flow_step_counts(x, fx, mx, y, fy, my, ell, p, passes=("flow", "step")):
-    """Operations of the per-pair passes (csrc/flow_step.cuh) on this data:
-    the gate sweep, once whatever the passes (the kept pairs can be carried
-    from one pass to the next): geometric distance of a valid pair 11 (an
-    FMA-chain dot, the identity, clamp, compare), colour distance of a pair
-    inside the geometric gate 15, the joint kernel of a gated pair 8; then
+    """Instructions of the per-pair passes (csrc/flow_step.cuh) on this
+    data: the gate sweep, once whatever the passes (the kept pairs can be
+    carried from one pass to the next): geometric distance of a valid pair
+    8 (a 3-term FMA-chain dot 3, the identity 3, clamp, compare), colour
+    distance of a pair inside the geometric gate 10 (a 5-term chain 5, the
+    identity 3, clamp, compare), the joint kernel of a gated pair 8; then
     a kept pair adds 10 in the flow pass (y - x, d += a (y - x), count) and
     67 in the step pass (four 3-dots, four subtractions, beta..epsilon, the
     B..E polynomials and four multiply-adds). Both clouds are read once;
@@ -276,14 +305,16 @@ def flow_step_counts(x, fx, mx, y, fy, my, ell, p, passes=("flow", "step")):
         -(d2 / (2 * ell * ell) + d2c / (2 * p.c_ell ** 2)), min=-20.0))
     n = [int(t.sum()) for t in (valid, geo, gate, gate & (a > p.sp_thres))]
     per_kept = {"flow": 10, "step": 67}
-    ops = 11 * n[0] + 15 * n[1] + 8 * n[2] \
+    ops = 8 * n[0] + 10 * n[1] + 8 * n[2] \
         + sum(per_kept[q] for q in passes) * n[3]
     nbytes = (x.shape[0] + y.shape[0]) * ((3 + 5) * 4 + 1) + 10 * 4 + 4
     return ops, nbytes
 
 
 def bound_ms(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    """The least time of `ops` fp32 instructions and `nbytes` bytes:
+    (ms, what bounds it)."""
+    t_ops, t_bytes = ops / PEAK_INSTR, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -311,16 +342,35 @@ def kernel_checks(clouds, p, report):
         yt = se3.transform_points(
             se3.exp_se3(torch.tensor(TWIST, device=x.device)), y).contiguous()
         for ell in ELLS:
-            # the kernel's own output: Mom column by column, nnz exactly
+            # the kernel's own output: Mom column by column, nnz exactly;
+            # pass 1's keep bitmask bit for bit; a second launch bitwise
             ell_t = torch.tensor(ell, device=x.device)
+            bits = torch.empty((-(-x.shape[0] // kernels.KEEP_WORD),
+                                y.shape[0]), dtype=torch.int32,
+                               device=x.device)
+            split = {}
             Mk, nk = kernels.moment_pass_cuda(x, y, fx, fy, mx, my, U, ell_t,
-                                              p)
+                                              p, keep_bits=bits,
+                                              launch_info=split)
+            again = kernels.moment_pass_cuda(x, y, fx, fy, mx, my, U, ell_t,
+                                             p)
             Mp, npl = kernels.moment_pass_plain(x, y, fx, fy, mx, my, U,
                                                 ell_t, p)
+            want_bits = kernels.moment_keep_bits_plain(x, y, fx, fy, mx, my,
+                                                       ell_t, p)
             torch.cuda.synchronize()
             if int(nk) != int(npl):
                 raise AssertionError(f"moment nnz {int(nk)} != {int(npl)} "
                                      f"(CAP {cap}, ell {ell})")
+            if not torch.equal(bits, want_bits):
+                diff = kernels.unpack_keep_bits(bits, x.shape[0]) \
+                    ^ kernels.unpack_keep_bits(want_bits, x.shape[0])
+                raise AssertionError(f"moment keep bitmask: "
+                                     f"{int(diff.sum())} bits differ (CAP "
+                                     f"{cap}, ell {ell})")
+            if not (torch.equal(Mk, again[0]) and torch.equal(nk, again[1])):
+                raise AssertionError(f"moment: two launches differ (CAP "
+                                     f"{cap}, ell {ell})")
             col = Mp.abs().amax(dim=0).clamp(min=1e-30)
             err_m = float(((Mk - Mp).abs() / col).max())
             if err_m > 1e-5:
@@ -342,9 +392,11 @@ def kernel_checks(clouds, p, report):
             report["moment_flow_step"]["max_abs_err"] = max(
                 report["moment_flow_step"]["max_abs_err"], err)
             print(f"moment_flow_step CAP {cap} ell {ell}: nnz {int(nk)} "
-                  f"equal, Mom max |err| / column max {err_m:.3e}, omega v B"
-                  f" C max |err| {err:.3e}, D E rel diff "
-                  f"{rel_de[0]:.2e} {rel_de[1]:.2e}", flush=True)
+                  f"equal, keep bitmask equal bit for bit, two launches "
+                  f"bitwise equal, Mom max |err| / column max {err_m:.3e}, "
+                  f"omega v B C max |err| {err:.3e}, D E rel diff "
+                  f"{rel_de[0]:.2e} {rel_de[1]:.2e}; split {split}",
+                  flush=True)
 
             got = kernels.ip_suite(x, fx, mx, y, fy, my, yt, ell, p)
             want = kernels.ip_suite_plain(x, fx, mx, y, fy, my, yt, ell, p)
@@ -368,10 +420,18 @@ def kernel_checks(clouds, p, report):
 
             # pair stats of the loop-closure post set: rows yt, columns x
             for mom in (False, True):
-                got = kernels.pair_stats(yt, fy, my, x, fx, mx, ell, p, mom)
+                split = {}
+                got = kernels.pair_stats_cuda(yt, fy, my, x, fx, mx, ell, p,
+                                              mom, launch_info=split)
+                again = kernels.pair_stats_cuda(yt, fy, my, x, fx, mx, ell,
+                                                p, mom)
                 want = kernels.pair_stats_plain(yt, fy, my, x, fx, mx, ell,
                                                 p, mom)
                 torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(
+                        f"pair_stats: two launches differ (CAP {cap}, ell "
+                        f"{ell}, moments {mom})")
                 if float(got[1]) != float(want[1]) or (
                         mom and int(got[3]) != int(want[3])):
                     raise AssertionError(
@@ -388,7 +448,8 @@ def kernel_checks(clouds, p, report):
                 report["pair_stats"]["max_abs_err"] = max(
                     report["pair_stats"]["max_abs_err"], err)
                 print(f"pair_stats CAP {cap} ell {ell} moments {mom}: count "
-                      f"{int(got[1])} equal, max |err| {err:.3e}", flush=True)
+                      f"{int(got[1])} equal, two launches bitwise equal, max "
+                      f"|err| {err:.3e}; split {split}", flush=True)
 
         if cap != CAPS[0]:
             continue
@@ -397,14 +458,15 @@ def kernel_checks(clouds, p, report):
             ell_t = torch.tensor(ell, device=x.device)
             kern = lambda: kernels.moment_pass_cuda(  # noqa: E731
                 x, y, fx, fy, mx, my, U, ell_t, p)
-            t_k, t_d = cuda_time_ms(kern), device_time_ms(
-                kern, DEVICE_NAMES["moment_flow_step"])
+            t_k = cuda_time_ms(kern)
+            t_d, per_call = device_profile(kern,
+                                           DEVICE_NAMES["moment_flow_step"])
             t_p = cuda_time_ms(lambda: kernels.moment_pass_plain(
                 x, y, fx, fy, mx, my, U, ell_t, p), reps=3)
             ops, nbytes = moment_counts(x, fx, mx, y, fy, my, ell, p)
             b, by = bound_ms(ops, nbytes)
             _record(report["moment_flow_step"], ell, t_k, t_p, b, by, ops,
-                    device=t_d)
+                    device=t_d, per_call=per_call, max_per_call=2)
             kern = lambda: kernels.ip_suite_cuda(  # noqa: E731
                 x, fx, mx, y, fy, my, yt, ell_t, p)
             t_k, t_d = cuda_time_ms(kern), device_time_ms(
@@ -420,31 +482,43 @@ def kernel_checks(clouds, p, report):
             for mom in (True, False):
                 kern = lambda: kernels.pair_stats_cuda(  # noqa: E731
                     yt, fy, my, x, fx, mx, ell_t, p, mom)
-                t_k, t_d = cuda_time_ms(kern), device_time_ms(
-                    kern, DEVICE_NAMES["pair_stats"])
+                t_k = cuda_time_ms(kern)
+                t_d, per_call = device_profile(kern,
+                                               DEVICE_NAMES["pair_stats"])
                 t_p = cuda_time_ms(lambda: kernels.pair_stats_plain(
                     yt, fy, my, x, fx, mx, ell_t, p, mom), reps=3)
                 ops, nbytes = pair_stats_counts(yt, fy, my, x, fx, mx, ell,
                                                 p, mom)
                 b, by = bound_ms(ops, nbytes)
                 _record(report["pair_stats"], ell, t_k, t_p, b, by, ops,
-                        "moments" if mom else "", device=t_d)
+                        "moments" if mom else "", device=t_d,
+                        per_call=per_call, max_per_call=1)
 
 
-def _record(entry, ell, t_k, t_p, b, by, ops, mode="", device=None):
+def _record(entry, ell, t_k, t_p, b, by, ops, mode="", device=None,
+            per_call=None, max_per_call=None):
     """Print one timing: t_k the CUDA-event time per wrapper call (host work
-    included), `device` the kernels' own device time per call; keep it under
-    times_by_ell (mode-suffixed keys for a second mode) and as the entry's
-    headline at the first ell without a mode."""
+    included), `device` the kernels' own device time per call (a kernel the
+    profiler did not see fails the phase), per_call the profiler's kernel
+    launches per wrapper call (held at max_per_call when given); keep it
+    under times_by_ell (mode-suffixed keys for a second mode) and as the
+    entry's headline at the first ell without a mode."""
     tag = f" {mode}" if mode else ""
-    dev = f"{device:.4f} ms" if device else "not measured"
-    share = f"{b / device:.1%}" if device else "not measured"
+    if device is None:
+        raise AssertionError(f"{entry['name']}{tag}: the profiler saw none of "
+                             f"its kernels {DEVICE_NAMES[entry['name']]}")
+    if max_per_call is not None and per_call > max_per_call:
+        raise AssertionError(f"{entry['name']}{tag}: {per_call} kernel "
+                             f"launches per call, at most {max_per_call}")
+    calls = "" if per_call is None else f", {per_call:g} launches per call"
     print(f"{entry['name']}{tag} CAP {CAPS[0]} ell {ell}: kernel {t_k:.4f} "
-          f"ms per call, device {dev}, plain {t_p:.4f} ms, bound {b:.4f} ms "
-          f"({by}, {ops:.4g} ops), {b / t_k:.1%} of bound per call, {share} "
-          f"on the device", flush=True)
+          f"ms per call, device {device:.4f} ms{calls}, plain {t_p:.4f} ms, "
+          f"bound {b:.4f} ms ({by}, {ops:.4g} instructions), "
+          f"{b / t_k:.1%} of bound per call, {b / device:.1%} on the device",
+          flush=True)
     entry["times_by_ell"][str(ell) + (f" {mode}" if mode else "")] = dict(
-        ms=t_k, device_ms=device, plain_ms=t_p, bound_ms=b)
+        ms=t_k, device_ms=device, plain_ms=t_p, bound_ms=b,
+        launches_per_call=per_call)
     if ell == ELLS[0] and not mode:
         entry.update(ms=t_k, device_ms=device, plain_ms=t_p, bound_ms=b,
                      bound_by=by)
@@ -618,12 +692,16 @@ def align_checks(clouds, p, report):
                        trials=3)
     t_d = device_time_ms(lambda: kernels.align_fused_cuda(*args),
                          DEVICE_NAMES["align_fused"], reps=5)
+    if t_d is None:
+        raise AssertionError("align_fused: the profiler saw none of its "
+                             f"kernels {DEVICE_NAMES['align_fused']}")
     t_p = cuda_time_ms(lambda: kernels.align_fused_plain(*args), reps=1,
                        trials=3)
     print(f"align_fused CAP {CAPS[0]}: {t_k:.4f} ms per alignment (device "
           f"{t_d:.4f} ms), {n_iter} iterations, {t_k / n_iter:.4f} ms per "
           f"iteration; plain {t_p:.1f} ms; bound {b:.4f} ms ({by}, "
-          f"{ops:.4g} ops), {b / t_k:.1%} of bound", flush=True)
+          f"{ops:.4g} instructions), {b / t_k:.1%} of bound per call, "
+          f"{b / t_d:.1%} on the device", flush=True)
     report["align_fused"].update(ms=t_k, device_ms=t_d, plain_ms=t_p,
                                  bound_ms=b,
                                  bound_by=by, iterations=n_iter,
@@ -752,8 +830,9 @@ def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
     with open(os.path.join(folder, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     tracked = [r for r in rows if "odo_iters" in r]
-    iters = [r["odo_iters"] for r in tracked] + [r["kf_iters"]
-                                                 for r in tracked]
+    odo = [r["odo_iters"] for r in tracked]
+    kf = [r["kf_iters"] for r in tracked]
+    iters = odo + kf
     t_frame = [r["t_frame_s"] * 1e3 for r in tracked]
     # alignments: one bootstrap (odometry only) + two per tracked frame
     n_align = 1 + 2 * len(tracked)
@@ -762,9 +841,9 @@ def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
           f"{np.median(t_frame):.1f} median over {len(tracked)} tracked "
           f"frames; wall {stats['wall_s']:.2f} s ({stats['fps']:.2f} fps "
           f"incl. bootstrap and IO); {np.mean(iters):.1f} align iterations "
-          f"per alignment (tracked frames); launches {launches}; alignments "
-          f"{n_align}; max position error {err.max():.4f} m, ATE {ate:.4f} m",
-          flush=True)
+          f"per alignment (tracked frames: odometry {odo}, keyframe {kf}); "
+          f"launches {launches}; alignments {n_align}; max position error "
+          f"{err.max():.4f} m, ATE {ate:.4f} m", flush=True)
     # the align kernel of the backend: at least once per iteration, or
     # (align_fused) exactly once per alignment; the other two never
     aligns = {"pallas_mom": "moment_flow_step",

@@ -42,20 +42,6 @@
 
 namespace {
 
-// Whether this block is the last of n to finish (the thread-fence
-// reduction): thread 0, which wrote the block's partials, makes them
-// visible device-wide and takes a ticket. Every thread of the block calls
-// it.
-__device__ bool last_block(int* ticket, int n, int* flag) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    *flag = atomicAdd(ticket, 1) == n - 1;
-  }
-  __syncthreads();
-  return *flag != 0;
-}
-
 // pass 1: the item's partials and bitmask words; the last block sums the
 // partials into out_f[0:6] = omega, v and out_n[0] = nnz
 __global__ void __launch_bounds__(THREADS)

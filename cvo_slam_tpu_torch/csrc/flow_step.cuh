@@ -1,7 +1,10 @@
 // The two per-pair passes of one CVO align iteration (cvo.cpp:122-334), as
 // device functions over one work item, shared by flow_step.cu (one launch
 // per pass) and align_fused.cu (inside its persistent loop, with the moving
-// cloud transformed by the current pose as it is staged).
+// cloud transformed by the current pose as it is staged). The work split,
+// the staging of column tiles (sweep_packed, with the caller's packing) and
+// the last-block ticket serve the moment kernel (moment_flow_step.cu) and
+// pair stats (pair_stats.cu) too.
 //
 // The work split. A work item is a row tile of ROWS = RB x THREADS fixed
 // points against a chunk of column tiles of CT = 32 moving points. Thread t
@@ -257,12 +260,13 @@ __device__ __forceinline__ void pack_tile(const RawTile& raw, PackedTile& pk,
 }
 
 // The sweep of one item's column tiles: stage them (double-buffered
-// cp.async) and call visit(t, packed tile) once per tile. Every thread of
-// the block calls it.
-template <bool MOVE, class Visit>
-__device__ __forceinline__ void sweep(const Clouds& cl, const Split& sp,
-                                      const Item& it, const Pose& pose,
-                                      Stage& s, Visit&& visit) {
+// cp.async), pack each with pack(raw tile, packed tile) and call
+// visit(t, packed tile) once per tile. Every thread of the block calls it.
+template <class Pack, class Visit>
+__device__ __forceinline__ void sweep_packed(const Clouds& cl,
+                                             const Split& sp, const Item& it,
+                                             Stage& s, Pack&& pack,
+                                             Visit&& visit) {
   issue_tile(cl, sp.M, it.t0, s.raw[0]);
   cp_async_commit();
   for (int t = it.t0; t < it.t1; ++t) {
@@ -271,11 +275,23 @@ __device__ __forceinline__ void sweep(const Clouds& cl, const Split& sp,
     __syncthreads();   // tile t has landed; the last visit and pack are done
     if (t + 1 < it.t1) issue_tile(cl, sp.M, t + 1, s.raw[b ^ 1]);
     cp_async_commit();
-    pack_tile<MOVE>(s.raw[b], s.pk, pose);
+    pack(s.raw[b], s.pk);
     __syncthreads();
     visit(t, s.pk);
   }
   __syncthreads();     // the stage is free for the next item
+}
+
+// the sweep with the per-pair passes' packing (pack_tile)
+template <bool MOVE, class Visit>
+__device__ __forceinline__ void sweep(const Clouds& cl, const Split& sp,
+                                      const Item& it, const Pose& pose,
+                                      Stage& s, Visit&& visit) {
+  sweep_packed(cl, sp, it, s,
+               [&](const RawTile& raw, PackedTile& pk) {
+                 pack_tile<MOVE>(raw, pk, pose);
+               },
+               visit);
 }
 
 // the geometric distance of (row r, column p) before its clamp at 0:
@@ -511,6 +527,20 @@ __device__ void step_sweep_item(const Clouds& cl, const Split& sp, int item,
   if (threadIdx.x == 0)
     for (int q = 0; q < N_STEP; ++q)
       __stcg(spart + q * sp.items + item, red.out[q]);
+}
+
+// Whether this block is the last of n to finish (the thread-fence
+// reduction): thread 0, which wrote the block's partials, makes them
+// visible device-wide and takes a ticket. Every thread of the block calls
+// it.
+__device__ bool last_block(int* ticket, int n, int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *flag = atomicAdd(ticket, 1) == n - 1;
+  }
+  __syncthreads();
+  return *flag != 0;
 }
 
 // Sum the flow partials of `items` work items in a fixed order (thread t

@@ -1,5 +1,4 @@
-// Inner-product suite of compute_innerproduct, and the single-pair-set
-// pair-stats kernel of compute_innerproduct_lc, for sm_90a.
+// Inner-product suite of compute_innerproduct, for sm_90a.
 //
 // ip_suite_launch replaces: cvo_slam_tpu/cvo/pallas_kernels.py:ip_suite (kernel body
 // _ip_suite_kernel), whose XLA twin is ops/pairwise.py:ip_suite. For four
@@ -34,19 +33,6 @@
 //     a fixed order.
 // No float atomics anywhere: two runs give bitwise-equal results.
 // Any capacity works: rows and columns past the end are masked.
-//
-// pair_stats_launch replaces: cvo_slam_tpu/cvo/pallas_kernels.py:pair_stats
-// (kernel body _stats_kernel), whose plain twin is ops/pairwise.py:pair_stats.
-// It is the suite restricted to one pair set, rows xa (the transformed
-// moving cloud) against columns xb: the gated sum of ck * k, the gated-pair
-// count and, when with_moments is set, G = U(xa)^T W U(xb) with
-// W_ij = gate * sigma^2 exp(max(-d2 / 2 ell^2, -20)) * (fa_i . fb_j). It
-// shares the suite's device functions (the FMA-chain dots, the clamped
-// kernels, the fixed-order block reductions) and its passes 2 and 3; the
-// first pass is a template on with_moments, so the six loop-closure calls
-// without moments carry no W U work. Bound: arithmetic, as the suite (one
-// pair set: ~25 operations per valid pair, two exponentials per gated pair,
-// 13 multiply-adds per gated pair with moments).
 
 #include "pair_math.cuh"
 
@@ -219,102 +205,6 @@ suite_pass(const float* __restrict__ x, const float* __restrict__ fx,
   }
 }
 
-// Pair stats, pass 1: one thread owns row r of xa; the chunk's column
-// tiles of xb are staged in shared memory. Per thread: the gated sum, the
-// integer count and (MOM) the 13 entries of (W U(xb))_r in registers. Each
-// block writes one partial of (sum, count) into slot 0 of the suite's
-// 4-slot partial layout (slots 1-3 zero), so suite_finalize reduces both.
-template <bool MOM>
-__global__ void __launch_bounds__(TILE)
-pair_stats_pass(const float* __restrict__ xa, const float* __restrict__ fa,
-                const unsigned char* __restrict__ ma,
-                const float* __restrict__ xb, const float* __restrict__ fb,
-                const unsigned char* __restrict__ mb,
-                const float* __restrict__ ell_ptr, int N, int M,
-                int tiles_per_chunk, Consts k, float* __restrict__ sum_part,
-                int* __restrict__ cnt_part, float* __restrict__ wu_part) {
-  __shared__ float cp[3][TILE];
-  __shared__ float cf[5][TILE];
-  __shared__ float csq[TILE];
-  __shared__ float cfsq[TILE];
-  __shared__ unsigned char cm[TILE];
-  __shared__ float fbuf[TILE];
-  __shared__ int ibuf[TILE];
-
-  const int tid = threadIdx.x;
-  const int r = blockIdx.x * TILE + tid;
-  const int chunk = blockIdx.y;
-  const float ell = *ell_ptr;
-  const float d2t = -2.f * ell * ell * k.log_ratio;
-  const float den = 2.f * ell * ell;
-
-  const bool arow = r < N && ma[r] != 0;
-  float ar[3] = {0.f, 0.f, 0.f};
-  float far_[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (r < N) {
-    for (int c = 0; c < 3; ++c) ar[c] = xa[r * 3 + c];
-    for (int c = 0; c < 5; ++c) far_[c] = fa[r * 5 + c];
-  }
-  const float aa = sq3(ar), faa = sq5(far_);
-
-  float s = 0.f;
-  int n = 0;
-  float wu[NU];
-#pragma unroll
-  for (int a = 0; a < NU; ++a) wu[a] = 0.f;
-
-  const int nt = (M + TILE - 1) / TILE;
-  const int t0 = chunk * tiles_per_chunk;
-  const int t1 = min(t0 + tiles_per_chunk, nt);
-  for (int t = t0; t < t1; ++t) {
-    const int i = t * TILE + tid;
-    const bool in = i < M;
-    float p[3], f[5];
-    for (int c = 0; c < 3; ++c) p[c] = in ? xb[i * 3 + c] : 0.f;
-    for (int c = 0; c < 5; ++c) f[c] = in ? fb[i * 5 + c] : 0.f;
-    for (int c = 0; c < 3; ++c) cp[c][tid] = p[c];
-    for (int c = 0; c < 5; ++c) cf[c][tid] = f[c];
-    csq[tid] = sq3(p);
-    cfsq[tid] = sq5(f);
-    cm[tid] = in ? mb[i] : 0;
-    __syncthreads();
-    if (arow) {
-      for (int kk = 0; kk < TILE; ++kk) {
-        if (!cm[kk]) continue;
-        const float cdot = col_dot(far_, cf, kk, 5);
-        const float d2c = fmaxf(faa + cfsq[kk] - 2.f * cdot, 0.f);
-        if (!(d2c < k.d2ct)) continue;
-        const float d2 = ident_d2(aa, csq[kk], ar, cp, kk, 3);
-        if (!(d2 < d2t)) continue;
-        const float ck = clamped_kernel(k.cs2, -d2c / k.two_cl2);
-        const float kv = clamped_kernel(k.s2, -d2 / den);
-        s += ck * kv;
-        ++n;
-        if (MOM) {
-          const float w = kv * cdot;
-          const float pb[3] = {cp[0][kk], cp[1][kk], cp[2][kk]};
-#pragma unroll
-          for (int a = 0; a < NU; ++a) wu[a] += w * lift(pb, a);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (MOM && r < N) {
-#pragma unroll
-    for (int a = 0; a < NU; ++a)
-      wu_part[((size_t)chunk * NU + a) * N + r] = wu[a];
-  }
-  const int part = chunk * gridDim.x + blockIdx.x;
-  const float bs = block_sum(s, fbuf);
-  const int bc = block_count(n, ibuf);
-  if (tid < 4) {
-    sum_part[part * 4 + tid] = tid == 0 ? bs : 0.f;
-    cnt_part[part * 4 + tid] = tid == 0 ? bc : 0;
-  }
-}
-
 // One block per TILE rows: G_partial[a][b] = sum_j U(yt_j)[a] * WU_j[b],
 // WU_j summed over chunks in chunk order.
 __global__ void suite_g_partial(const float* __restrict__ yt,
@@ -391,48 +281,5 @@ extern "C" int ip_suite_launch(
   if (err != cudaSuccess) return (int)err;
   suite_finalize<<<1, 192, 0, stream>>>(g_part, nyt, sum_part, cnt_part,
                                         n_chunks * grid.x, out_f, out_n);
-  return (int)cudaGetLastError();
-}
-
-// Plain C entry point of the pair-stats kernel (loaded with ctypes): rows
-// xa/fa/ma (N), columns xb/fb/mb (M). Launches pass 1 and, with moments,
-// the suite's pass 2 over the rows; then suite_finalize. out_f[0:169] = G
-// (zero without moments), out_f[169] = the sum; out_n[0] = the count.
-// Scratch sizes: sum_part and cnt_part n_chunks * ceil(N/128) * 4, wu_part
-// n_chunks * 13 * N and g_part ceil(N/128) * 169 (both unused without
-// moments); out_f 173 floats, out_n 4 ints. Returns the CUDA error code.
-extern "C" int pair_stats_launch(
-    const float* xa, const float* fa, const unsigned char* ma,
-    const float* xb, const float* fb, const unsigned char* mb,
-    const float* ell, int N, int M, int n_chunks, int with_moments,
-    float log_ratio, float d2ct, float s2, float cs2, float two_cl2,
-    float* sum_part, int* cnt_part, float* wu_part, float* g_part,
-    float* out_f, int* out_n, cudaStream_t stream) {
-  if (N <= 0 || M <= 0 || n_chunks <= 0) return (int)cudaErrorInvalidValue;
-  const int row_blocks = (N + TILE - 1) / TILE;
-  const int nt = (M + TILE - 1) / TILE;
-  const dim3 grid(row_blocks, n_chunks);
-  const int per_chunk = (nt + n_chunks - 1) / n_chunks;
-  const Consts k{log_ratio, d2ct, s2, cs2, two_cl2};
-  if (with_moments) {
-    pair_stats_pass<true><<<grid, TILE, 0, stream>>>(
-        xa, fa, ma, xb, fb, mb, ell, N, M, per_chunk, k, sum_part, cnt_part,
-        wu_part);
-  } else {
-    pair_stats_pass<false><<<grid, TILE, 0, stream>>>(
-        xa, fa, ma, xb, fb, mb, ell, N, M, per_chunk, k, sum_part, cnt_part,
-        wu_part);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (with_moments) {
-    suite_g_partial<<<row_blocks, 192, 0, stream>>>(xa, wu_part, N, n_chunks,
-                                                    g_part);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  suite_finalize<<<1, 192, 0, stream>>>(g_part, with_moments ? row_blocks : 0,
-                                        sum_part, cnt_part,
-                                        n_chunks * row_blocks, out_f, out_n);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // The pair math shared by every pairwise kernel of the port (ip_suite.cu,
-// flow_step.cu, align_fused.cu): gate constants, squared norms, the
+// and through flow_step.cuh flow_step.cu, align_fused.cu,
+// moment_flow_step.cu and pair_stats.cu): gate constants, squared norms, the
 // FMA-chain dot products of the dot-product distance identity, the clamped
 // kernel exponential and the fixed-order block reductions.
 //

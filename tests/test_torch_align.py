@@ -512,12 +512,16 @@ def test_library_name_hashes_included_headers(tmp_path):
         f.write("\n// edited\n")
     after = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
     changed = {s for s in cuda_build.SOURCES if before[s] != after[s]}
-    assert changed == {"ip_suite.cu", "flow_step.cu", "align_fused.cu"}
+    # every source includes it, ip_suite.cu directly, the others through
+    # flow_step.cuh
+    assert changed == {"ip_suite.cu", "flow_step.cu", "align_fused.cu",
+                       "moment_flow_step.cu", "pair_stats.cu"}
     with open(os.path.join(csrc, "flow_step.cuh"), "a") as f:
         f.write("\n// edited\n")
     again = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
     assert {s for s in cuda_build.SOURCES if after[s] != again[s]} \
-        == {"flow_step.cu", "align_fused.cu"}
+        == {"flow_step.cu", "align_fused.cu", "moment_flow_step.cu",
+            "pair_stats.cu"}
     assert cuda_build._so_path("ip_suite.cu") \
         == cuda_build._so_path("ip_suite.cu", cuda_build.CSRC_DIR)
 

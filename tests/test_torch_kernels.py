@@ -103,6 +103,117 @@ def test_moment_pass_masked_slots_contribute_zero():
         np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
 
 
+def _uneven_clouds(seed, cap_n, cap_m):
+    """A fixed cloud of capacity cap_n and a moving one of cap_m (N != M),
+    each with a masked tail of garbage, as torch tensors."""
+    cap = max(cap_n, cap_m)
+    x, fx, mx, y, fy, my = make_clouds(
+        seed, max(1, cap_n - cap_n // 10), max(1, cap_m - cap_m // 10),
+        cap=cap)
+    return [torch.as_tensor(a) for a in
+            (x[:cap_n], fx[:cap_n], mx[:cap_n], y[:cap_m], fy[:cap_m],
+             my[:cap_m])]
+
+
+def _numpy_moment_keep(x, fx, mx, y, fy, my, ell):
+    """(N, M) keep of the moment form, written anew in numpy float32:
+    explicit differences coordinate by coordinate; the exponential of the
+    same argument through torch (numpy's float32 exp rounds otherwise)."""
+    x, fx, mx, y, fy, my = [np.asarray(a) for a in (x, fx, mx, y, fy, my)]
+    f = np.float32
+
+    def sq_diffs(a, b):
+        out = None
+        for c in range(a.shape[1]):
+            e = a[:, None, c] - b[None, :, c]
+            out = e * e if out is None else out + e * e
+        return out
+
+    d2, d2c = sq_diffs(x, y), sq_diffs(fx, fy)
+    ell = f(ell)
+    d2t = f(-2.0) * ell * ell * f(tpw.log_sp_ratio(TP))
+    arg = -(d2 * (f(1.0) / (f(2.0) * ell * ell))
+            + d2c * f(1.0 / (2.0 * TP.c_ell * TP.c_ell)))
+    a = f(TP.sigma ** 2 * TP.c_sigma ** 2) * torch.exp(
+        torch.clamp(torch.as_tensor(arg), min=-20.0)).numpy()
+    gate = (d2 < d2t) & (d2c < f(tpw.d2_color_threshold(TP))) \
+        & mx[:, None] & my[None, :]
+    return gate & (a > f(TP.sp_thres))
+
+
+UNEVEN = [(1, 129), (129, 1), (250, 129), (129, 250), (3000, 2980)]
+
+
+@pytest.mark.parametrize("n,m", UNEVEN)
+def test_moment_keep_bits_layout(n, m):
+    """moment_keep_bits_plain, what pass 1 of the moment kernel records:
+    rows j of the moving cloud, words over the fixed points i, equal to the
+    moment form's keep (computed anew here) and counting moment_pass_plain's
+    nnz, at CAP 1, 129, 250 and 3000 with N != M."""
+    x, fx, mx, y, fy, my = _uneven_clouds(n + m, n, m)
+    bits = kernels.moment_keep_bits_plain(x, y, fx, fy, mx, my, 0.15, TP)
+    assert bits.dtype == torch.int32
+    assert tuple(bits.shape) == (-(-n // 32), m)
+    keep = kernels.unpack_keep_bits(bits, n)             # (M, N)
+    want = _numpy_moment_keep(x, fx, mx, y, fy, my, 0.15)
+    np.testing.assert_array_equal(keep.numpy(), want.T)
+    _, U = tpw.step_moment_basis(x, mx)
+    _, nnz = kernels.moment_pass_plain(x, y, fx, fy, mx, my, U, 0.15, TP)
+    assert int(keep.sum()) == int(nnz)
+    if n * m > 1000:
+        assert int(nnz) > 0
+
+
+def test_moment_keep_bits_are_not_the_dot_identity_keep():
+    """Far from the origin the two formulations round apart: the moment
+    form (explicit differences) keeps other pairs than pairwise.cvo_kernel
+    (the dot identity, keep_bits_plain), and the moment kernel's bitmask
+    follows the moment form."""
+    x, fx, mx, y, fy, my = _uneven_clouds(31, 250, 240)
+    x, y = x + 60.0, y + 60.0
+    moment = kernels.unpack_keep_bits(kernels.moment_keep_bits_plain(
+        x, y, fx, fy, mx, my, 0.15, TP), 250).T          # (N, M)
+    ident = kernels.unpack_keep_bits(kernels.keep_bits_plain(
+        x, y, fx, fy, mx, my, 0.15, TP), 240)
+    assert int((moment != ident).sum()) > 0
+    np.testing.assert_array_equal(
+        moment.numpy(), _numpy_moment_keep(x, fx, mx, y, fy, my, 0.15))
+
+
+@pytest.mark.parametrize("ell", [0.15, 0.06])
+@pytest.mark.parametrize("n,m", UNEVEN)
+def test_moment_from_bits_matches_moment_pass(n, m, ell):
+    """Pass 2's function (each row's kept pairs in ascending i) against
+    moment_pass_plain: Mom within 1e-6 of each column's max, nnz equal."""
+    x, fx, mx, y, fy, my = _uneven_clouds(n + 2 * m, n, m)
+    _, U = tpw.step_moment_basis(x, mx)
+    bits = kernels.moment_keep_bits_plain(x, y, fx, fy, mx, my, ell, TP)
+    got, nnz = kernels.moment_from_bits_plain(x, y, fx, fy, U, bits, ell,
+                                              TP)
+    want, nnz_w = kernels.moment_pass_plain(x, y, fx, fy, mx, my, U, ell, TP)
+    assert got.shape == want.shape == (m, 35)
+    assert int(nnz) == int(nnz_w)
+    col = want.abs().amax(dim=0).clamp(min=1e-30)
+    assert float(((got - want).abs() / col).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("ell", [0.15, 0.06])
+def test_moment_from_bits_matches_pallas(ell):
+    """Pass 2's function through the shared epilogue against the JAX
+    package's Pallas moment kernel (interpret mode): rtol 2e-4, nnz
+    exact."""
+    arrays = _clouds(4, 256, 200, 180)
+    _, pallas = _moment_refs(arrays, ell)
+    x, fx, mx, y, fy, my = [torch.as_tensor(a) for a in arrays]
+    center, U = tpw.step_moment_basis(x, mx)
+    bits = kernels.moment_keep_bits_plain(x, y, fx, fy, mx, my, ell, TP)
+    mom, nnz = kernels.moment_from_bits_plain(x, y, fx, fy, U, bits, ell, TP)
+    got = tpw.flow_and_step_from_moments(mom, y, center,
+                                         torch.tensor(np.float32(ell)), nnz,
+                                         TP)
+    _assert_moment(got, pallas)
+
+
 def _suite_inputs(seed, cap, n, m):
     arrays = _clouds(seed, cap, n, m)
     tran = jse3.exp_se3(jnp.asarray(
@@ -253,7 +364,8 @@ def _need_card():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain():
     """On a card: the moment and suite kernels against their plain versions
-    (CAP 250)."""
+    (CAP 250); the moment kernel's pass-1 bitmask equal bit for bit to the
+    moment form's keep, and two launches bitwise equal."""
     _need_card()
     arrays, yt = _suite_inputs(13, 250, 240, 190)
     x, fx, mx, y, fy, my = [torch.as_tensor(a).cuda() for a in arrays]
@@ -265,6 +377,13 @@ def test_cuda_kernels_match_plain():
         want = kernels.moment_flow_step_plain(x, y, fx, fy, mx, my, U,
                                               center, ell, TP)
         _assert_moment([g.cpu() for g in got], [w.cpu() for w in want])
+        bits = torch.empty((8, 250), dtype=torch.int32, device="cuda")
+        first = kernels.moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, TP,
+                                         keep_bits=bits)
+        again = kernels.moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, TP)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        assert torch.equal(bits.cpu(), kernels.moment_keep_bits_plain(
+            *[t.cpu() for t in (x, y, fx, fy, mx, my)], ell, TP))
         ytc = torch.as_tensor(yt).cuda()
         got = kernels.ip_suite(x, fx, mx, y, fy, my, ytc, ell, TP)
         want = kernels.ip_suite_plain(x, fx, mx, y, fy, my, ytc, ell, TP)
@@ -275,7 +394,8 @@ def test_cuda_kernels_match_plain():
 @pytest.mark.parametrize("cap", [256, 250])
 def test_pair_stats_cuda_matches_plain(cap):
     """On a card: the pair-stats kernel against its plain version, with
-    and without moments, at both ells, with the CPU parity bars."""
+    and without moments, at both ells, with the CPU parity bars; two
+    launches bitwise equal."""
     _need_card()
     arrays, yt = _suite_inputs(29, cap, 230, 200)
     x, fx, mx, _, fy, my = [torch.as_tensor(a).cuda() for a in arrays]
@@ -288,3 +408,6 @@ def test_pair_stats_cuda_matches_plain(cap):
                                             with_moments)
             _assert_stats([g.cpu() for g in got], [w.cpu() for w in want],
                           ell)
+            again = kernels.pair_stats(ytc, fy, my, x, fx, mx, ell, TP,
+                                       with_moments)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -1,6 +1,7 @@
 """Port, per-pair kernels' bookkeeping (CPU): the work split that
-cvo_slam_tpu_torch.cvo.kernels.plan_split makes for csrc/flow_step.cu and
-csrc/align_fused.cu, and the keep bitmask that their pass 1 writes and
+cvo_slam_tpu_torch.cvo.kernels.plan_split makes for csrc/flow_step.cu,
+csrc/align_fused.cu, csrc/moment_flow_step.cu (pass 1) and
+csrc/pair_stats.cu, and the keep bitmask that their pass 1 writes and
 pass 2 walks.
 
 The kernels read the split as csrc/flow_step.cuh's make_split and item_of
@@ -95,6 +96,28 @@ def test_plan_of_the_main_path(resident):
             plan.items) == (6, 96, 1, 576)
     with pytest.raises(ValueError):
         kernels.plan_split(0, 3072, 660, ROWS, COLS)
+
+
+@pytest.mark.parametrize("resident", [660, 528])
+@pytest.mark.parametrize("kernel,rows,cols,items", [
+    # the moment kernel's pass 1: rows the moving points, columns the
+    # fixed ones (3000 fixed points against 3072 moving ones: 94 tiles)
+    ("moment", 3072, 3000, (6, 94, 1, 564)),
+    ("moment", 3072, 3072, (6, 96, 1, 576)),
+    # pair stats: rows xa, columns xb, with and without moments
+    ("pair_stats", 3000, 3000, (6, 94, 1, 564)),
+    ("pair_stats", 3072, 3072, (6, 96, 1, 576)),
+])
+def test_plan_of_the_redesigned_kernels(kernel, rows, cols, items,
+                                        resident):
+    """The moment and pair-stats kernels at CAP 3072 (and 3000) on a card
+    that holds 5 or 4 of their blocks on each of 132 SMs: one column tile
+    per item, 576 work items at CAP 3072 where the first versions ran a
+    24 x 8 grid."""
+    plan = kernels.plan_split(rows, cols, resident, ROWS, COLS)
+    assert (plan.row_tiles, plan.chunks, plan.tiles_per_chunk,
+            plan.items) == items
+    assert len(_covered(plan)) == plan.row_tiles * plan.col_tiles
 
 
 @pytest.mark.parametrize("m", [1, 31, 32, 33, 129, 3000])
