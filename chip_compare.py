@@ -6,34 +6,43 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_compare.py kernels ROOT
 
 e2e: chip_smoke.py's end-to-end phases on the package under ROOT: tracking
-under pallas (16 frames) and pallas_iter (8 frames), run_odometry, and the
-whole SLAM system under pallas with its verify ms per candidate. ROOT is
-this checkout (.) or another commit unpacked with `git archive` into a
-git-ignored directory. Host-bound times move by tens of percent between
-machines, so compare two commits in one call, in turns: parent, change,
-change, parent.
+under pallas (16 frames) and pallas_iter (8 frames), each with its
+keyframe decisions per tracked frame (metrics.jsonl `accept`: 1 keeps the
+keyframe, 0 makes the frame a new one), run_odometry, and the whole SLAM
+system under pallas with its keyframe decisions and its verify ms per
+candidate. ROOT is this checkout (.) or another commit unpacked with `git
+archive` into a git-ignored directory. Host-bound times move by tens of
+percent between machines, so compare two commits in one call, in turns:
+parent, change, change, parent.
 
 kernels: the kernels of the package under ROOT, built from its csrc/:
 ptxas's registers and the device time (torch.profiler) with the kernel
-launches per call of the moment kernel, pair stats (with and without
-moments, rows the moving cloud under chip_smoke's TWIST), flow_and_step,
-flow and step_coeffs at CAP 3072 (frames 0 -> 1 of chip_smoke's sequence,
-ell 0.15 and 0.06; nnz and the pair count checked against the plain
-version) and of align_fused (ell 0.15 from the identity), with its
-iterations and launch; then, for each of the sequence's first N_PAIRS
-frame pairs k -> k + 1 at CAP 3072, align_fused's iterations and end
-transform against its plain version's (the whole-run gap: the stop rule
-and the sparsification gate turn last-bit differences of the sums into
-different iteration counts); last, chip_smoke's phase 3 (tracking under
-pallas_mom) with its iterations per alignment. Run several in one call to
-compare them.
+launches per call of the moment kernel, the suite (rows the moving cloud
+under chip_smoke's TWIST for post), its yardstick of four pair-stats calls (pre, post with
+moments, fixed, moving), pair stats (with and without moments, rows the
+moving cloud under TWIST), flow_and_step, flow and step_coeffs at CAP
+3072 (frames 0 -> 1 of chip_smoke's sequence, ell 0.15 and 0.06; nnz and
+the pair counts checked against the plain versions) and of align_fused
+(ell 0.15 from the identity), with its iterations and launch; then, for
+each of the sequence's first ALIGN_PAIRS frame pairs k -> k + 1 at CAP 3072,
+the whole-run gap of each align backend to its plain version: the
+iterations and end transform of align_fused against align_fused_plain,
+and of engine.align under pallas_mom and pallas_iter with the kernel
+against the same run with kernels.moment_pass_cuda /
+kernels.flow_and_step_cuda swapped for their plain versions inside this
+process (the stop rule and the sparsification gate turn last-bit
+differences of the sums into different iteration counts); last,
+chip_smoke's phase 3 (tracking under pallas_mom) with its iterations per
+alignment. Run several in one call to compare them.
 
 Both print a result line per phase and exit non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import json
 import os
 import shutil
 import sys
@@ -47,7 +56,7 @@ PASS_NAMES = ("flow_pass", "step_pass", "flow_finalize", "step_finalize")
 MOMENT_NAMES = ("moment_keep_pass", "moment_sum_pass", "moment_pass",
                 "moment_reduce")
 PAIR_STATS_NAMES = ("pair_stats_sweep", "pair_stats_pass", "suite_")
-N_PAIRS = 6      # frame pairs of the whole-run gap
+SUITE_NAMES = ("suite_",)
 
 
 def _chip_smoke():
@@ -56,6 +65,14 @@ def _chip_smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def keyframe_decisions(folder: str):
+    """The keyframe decision (`accept`) of every tracked frame in the
+    metrics.jsonl of a run_slam run in `folder`."""
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r["accept"] for r in rows if "accept" in r]
 
 
 def e2e(root: str) -> int:
@@ -74,11 +91,17 @@ def e2e(root: str) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_compare_") as folder:
         gt = synthetic.make_sequence(folder, CAMERA_PRESETS["TUM1"],
                                      n_frames=cs.N_FRAMES)
+        decisions = {}
         cs.tracking(folder, gt, report, card, "pallas")
+        decisions["tracking pallas"] = keyframe_decisions(folder)
         cs.tracking(folder, gt, report, card, "pallas_iter", cs.ITER_FRAMES)
+        decisions["tracking pallas_iter"] = keyframe_decisions(folder)
         cs.odometry(folder, gt, card)
         st = cs.slam(os.path.join(folder, "slam"), report, card,
                      backend="pallas")
+        decisions["SLAM pallas"] = keyframe_decisions(
+            os.path.join(folder, "slam"))
+    print(f"keyframe decisions per tracked frame: {decisions}", flush=True)
     per_cand = st["lc_stage_ms"]["verify"]["mean"] * st["lc_rounds"] \
         / st["lc_candidates"]
     print(f"verify per candidate (pallas): {per_cand:.1f} ms over "
@@ -86,16 +109,58 @@ def e2e(root: str) -> int:
     return 0
 
 
-def _sequence_clouds(cs, folder, cam, cap):
-    """Every frame of the sequence in `folder` as a cloud on the card."""
-    from cvo_slam_tpu_torch.config import FrontendParams
-    from cvo_slam_tpu_torch.data import tum
-    from cvo_slam_tpu_torch.frontend.pointcloud import create_pointcloud
-    fp = FrontendParams(cloud_capacity=cap)
-    return [cs.host_cloud_tensors(create_pointcloud(
-        im.bgr, im.gray, im.depth, cam, fp), "cuda")
-        for im in (tum.load_image(folder, r) for r in tum.load_association(
-            os.path.join(folder, "associate.txt")))]
+@contextlib.contextmanager
+def plain_align_kernels(kernels):
+    """kernels.moment_pass_cuda and kernels.flow_and_step_cuda replaced by
+    their plain versions inside this process for the block (what the
+    pallas_mom and pallas_iter aligns call once per iteration)."""
+    saved = kernels.moment_pass_cuda, kernels.flow_and_step_cuda
+    kernels.moment_pass_cuda = \
+        lambda x, y, fx, fy, mx, my, U, ell, p, **_: \
+        kernels.moment_pass_plain(x, y, fx, fy, mx, my, U, ell, p)
+    kernels.flow_and_step_cuda = \
+        lambda x, y, fx, fy, mx, my, ell, p, **_: \
+        kernels.flow_and_step_plain(x, y, fx, fy, mx, my, ell, p)
+    try:
+        yield
+    finally:
+        kernels.moment_pass_cuda, kernels.flow_and_step_cuda = saved
+
+
+def whole_run_gaps(cs, clouds, p):
+    """{backend: [(iterations, plain iterations, |dt| m, angle rad) per
+    frame pair k -> k + 1]} of align_fused and of the pallas_mom and
+    pallas_iter aligns against their plain versions, from the identity at
+    ell 0.15."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import engine, kernels
+    gaps = {"pallas": [], "pallas_mom": [], "pallas_iter": []}
+    for k in range(len(clouds) - 1):
+        it, itp, dt, ang, _, _ = cs.align_pair_gap(clouds, k, p)
+        gaps["pallas"].append((it, itp, dt, ang))
+        fixed, moving = (engine.PointCloud(*clouds[k]),
+                         engine.PointCloud(*clouds[k + 1]))
+        dev = clouds[k][0].device
+        eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        for backend in ("pallas_mom", "pallas_iter"):
+            got = engine.align(fixed, moving, eye, zero, cs.ELLS[0], p,
+                               backend)
+            with plain_align_kernels(kernels):
+                want = engine.align(fixed, moving, eye, zero, cs.ELLS[0], p,
+                                    backend)
+            dt, ang = cs.transform_gap((got.R, got.T), (want.R, want.T))
+            gaps[backend].append((int(got.iters), int(want.iters), dt, ang))
+    return gaps
+
+
+def _summary(rows):
+    """min / median / max of |iteration gap| and of |dt| over frame pairs."""
+    import numpy as np
+    di = np.abs([a - b for a, b, _, _ in rows])
+    dt = np.array([d for _, _, d, _ in rows])
+    return (f"|iteration gap| {di.min()}/{np.median(di):g}/{di.max()}, "
+            f"|dt| {dt.min():.2e}/{np.median(dt):.2e}/{dt.max():.2e} m "
+            f"(min/median/max)")
 
 
 def kernels_mode(root: str) -> int:
@@ -116,13 +181,14 @@ def kernels_mode(root: str) -> int:
                       for line in cuda_build.build_report.get(
                           "ptxas", {}).get(src, "").splitlines()
                       if "registers" in line]
-                for src in ("moment_flow_step.cu", "pair_stats.cu",
-                            "flow_step.cu", "align_fused.cu")}
+                for src in ("moment_flow_step.cu", "ip_suite.cu",
+                            "pair_stats.cu", "flow_step.cu",
+                            "align_fused.cu")}
 
         cam, p = CAMERA_PRESETS["TUM1"], SlamConfig.default_shipped().cvo
         seq = os.path.join(tmp, "seq")
         gt = synthetic.make_sequence(seq, cam, n_frames=cs.N_FRAMES)
-        clouds = _sequence_clouds(cs, seq, cam, cs.CAPS[0])[:N_PAIRS + 1]
+        clouds = cs.sequence_clouds(seq, cam, cs.CAPS[0], cs.ALIGN_PAIRS + 1)
         (x, fx, mx), (y, fy, my) = clouds[:2]
         args = (x, y, fx, fy, mx, my)
         _, U = pairwise.step_moment_basis(x, mx)
@@ -132,6 +198,22 @@ def kernels_mode(root: str) -> int:
         ms = {}
         for ell_v in cs.ELLS:
             ell = torch.tensor(ell_v, device="cuda")
+            suite = (x, fx, mx, y, fy, my, yt, ell, p)
+            got = kernels.ip_suite_cuda(*suite)
+            want = kernels.ip_suite_plain(*suite)
+            if [int(got[k]) for k in (1, 3, 5, 7, 9)] \
+                    != [int(want[k]) for k in (1, 3, 5, 7, 9)]:
+                raise AssertionError(f"suite counts differ from the plain "
+                                     f"version at ell {ell_v}")
+            ms[f"suite {ell_v}"] = cs.device_profile(
+                lambda: kernels.ip_suite_cuda(*suite), SUITE_NAMES)
+            sets = ((y, fy, my, x, fx, mx, False),
+                    (yt, fy, my, x, fx, mx, True),
+                    (x, fx, mx, x, fx, mx, False),
+                    (y, fy, my, y, fy, my, False))
+            ms[f"four pair_stats calls {ell_v}"] = cs.device_profile(
+                lambda: [kernels.pair_stats_cuda(*q[:6], ell, p, q[6])
+                         for q in sets], PAIR_STATS_NAMES)
             if int(kernels.moment_pass_cuda(*args, U, ell, p)[1]) \
                     != int(kernels.moment_pass_plain(*args, U, ell, p)[1]):
                 raise AssertionError(f"moment nnz differs from the plain "
@@ -163,29 +245,25 @@ def kernels_mode(root: str) -> int:
             }
             for k, fn in calls.items():
                 ms[f"{k} {ell_v}"] = cs.device_profile(fn, PASS_NAMES)
-        def align_args(k):
-            return clouds[k] + clouds[k + 1] + (
-                torch.eye(3, device="cuda"), torch.zeros(3, device="cuda"),
-                torch.tensor(cs.ELLS[0], device="cuda"), p)
-
-        a = align_args(0)
+        a = cs.align_args(clouds, 0, p)
         launch = {}
         iters = int(kernels.align_fused_cuda(*a, launch_info=launch)[3])
         t = cs.device_time_ms(lambda: kernels.align_fused_cuda(*a),
                               cs.DEVICE_NAMES["align_fused"], reps=5)
-        gaps = []
-        for k in range(N_PAIRS):
-            R, T, _, it, _ = kernels.align_fused_cuda(*align_args(k))
-            Rp, Tp, _, itp, _ = kernels.align_fused_plain(*align_args(k))
-            dt, ang = cs.transform_gap((R, T), (Rp, Tp))
-            gaps.append(f"{k}->{k + 1}: {int(it)} vs {int(itp)} iterations, "
-                        f"{dt:.2e} m, {ang:.2e} rad")
+        per_iter = "no window held every launch" if t is None else \
+            f"{t:.4f} ms, {t / (iters + 1):.4f} ms per iteration"
+        gaps = whole_run_gaps(cs, clouds, p)
         card = cs.card_line()
         print(f"kernels of {root} on {card}: registers {regs}; (device ms, "
-              f"launches per call) {ms}; align_fused {t:.4f} ms, {iters + 1} "
-              f"iterations, {t / (iters + 1):.4f} ms per iteration, launch "
-              f"{launch}; whole-run gap to the plain version, CAP "
-              f"{cs.CAPS[0]}: {'; '.join(gaps)}", flush=True)
+              f"launches per call) {ms}; align_fused {per_iter}, {iters + 1} "
+              f"iterations, launch {launch}", flush=True)
+        for backend, rows in gaps.items():
+            pairs = "; ".join(
+                f"{k}->{k + 1}: {a} vs {b} iterations, {dt:.2e} m, "
+                f"{ang:.2e} rad" for k, (a, b, dt, ang) in enumerate(rows))
+            print(f"whole-run gap of {backend} to its plain version, CAP "
+                  f"{cs.CAPS[0]}, {root}: {pairs}; {_summary(rows)}",
+                  flush=True)
         report = {k.name: dict(name=k.name, launches=0)
                   for k in kernels.KERNELS}
         cs.tracking(seq, gt, report, card, "pallas_mom")

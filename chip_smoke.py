@@ -12,10 +12,11 @@ Phases; any failure exits non-zero:
      two clouds of the port's synthetic 640x480 scene, at CAP 3072 and
      CAP 3000, ell in {0.15, 0.06}; bars: nnz, counts and inliers exact;
      the moment matrix Mom within 1e-5 of each column's max; omega, v, B, C
-     (through the shared epilogue) rtol 2e-4 / atol 1e-5; the four sums
-     rtol 1e-4; G atol 1e-5 after scaling by max|G|; the moment kernel's
-     pass-1 keep bitmask equal bit for bit to the moment form's keep
-     (kernels.moment_keep_bits_plain) and two launches bitwise equal. The
+     (through the shared epilogue) rtol 2e-4 / atol 1e-5; the suite's four
+     sums rtol 1e-4; G atol 1e-5 after scaling by max|G|; the moment
+     kernel's pass-1 keep bitmask equal bit for bit to the moment form's
+     keep (kernels.moment_keep_bits_plain); two launches of each bitwise
+     equal, the suite's split printed. The
      quartic coefficients D and E are printed, not held: the f32 epilogue
      (ops/pairwise.flow_and_step_from_moments) amplifies a 1e-7 change of
      Mom up to 1e-3 (D) and 1e-1 (E) relative on these clouds, for the
@@ -27,8 +28,9 @@ Phases; any failure exits non-zero:
      The pair-stats kernel is held the same way, with and without
      moments: value and count, G and inliers, two launches bitwise equal.
      The profiler's launches per call are held at most 2 for the moment
-     kernel and 1 for pair stats in each mode, and a kernel whose device
-     time the profiler does not see fails the phase. The per-pair align
+     kernel and 1 for the suite and for pair stats in each mode, and a
+     kernel whose device time the profiler does not see fails the phase.
+     The per-pair align
      kernels: flow_and_step, flow and step_coeffs (csrc/flow_step.cu)
      against their plain versions at the same capacities and ells, nnz
      exact, omega and v rtol 2e-4 / atol 1e-6, B, C, D, E rtol 2e-3 (the
@@ -39,7 +41,9 @@ Phases; any failure exits non-zero:
      equal, the iteration count within ALIGN_ITERS_SPREAD (the moment-form
      align's count printed beside them), the transform within 1e-4 (metres
      and radians), two launches bitwise equal, the grid the card's resident
-     blocks or the work items, whichever is fewer.
+     blocks or the work items, whichever is fewer; then on frames 1 -> 2 ..
+     5 -> 6 the iteration count within ALIGN_PAIRS_ITERS_SPREAD and the
+     transform within ALIGN_PAIRS_GAP.
      flow and step_coeffs lie on no path (only the JAX package's tests
      call them): their launches are those of these checks, and each
      flow_and_step launch of the main path runs both passes once more;
@@ -122,6 +126,14 @@ ITER_FRAMES = 8            # length of the pallas_iter tracking phase
 # script's frames 0 -> 1: 37 vs 40 with the sums of the first kernel, 45 vs
 # 40 with the fixed order of csrc/flow_step.cuh; see ROADMAP queue 3)
 ALIGN_ITERS_SPREAD = 5
+# align_fused against its plain version on frames 1 -> 2 .. 5 -> 6 (at CAP
+# 3072 from the identity at ell 0.15): the worst transform gap of every
+# order of sums tried for it (1.1e-3 m) and the shipped order's worst
+# iteration gap on these pairs (15), both from chip_compare.py kernels on
+# an NVIDIA H100 80GB HBM3 (PERF.md §6)
+ALIGN_PAIRS = 6
+ALIGN_PAIRS_GAP = 1.1e-3
+ALIGN_PAIRS_ITERS_SPREAD = 15
 # kernels on no path of the JAX package (only its tests call them): their
 # launches are those of the phase-2 checks
 CHECK_ONLY = ("flow", "step_coeffs")
@@ -173,19 +185,23 @@ def cuda_time_ms(fn, reps=10, trials=5):
     return times[len(times) // 2]
 
 
-def device_profile(fn, names, reps=20):
+def device_profile(fn, names, reps=20, windows=5):
     """(mean device time per call in ms, kernel launches per call) of the
     CUDA kernels of `fn` whose names contain one of `names`, from
     torch.profiler over `reps` calls after one warm-up call: the kernels'
     own time, without the wrapper's host work and launch gaps (which
     cuda_time_ms includes). The profiler now and then returns a window
-    without device events; such a window is taken again, up to 3 windows.
-    The time is None if the profiler saw none of them."""
+    without device events, or with some of them lost (a count of kernels
+    that is not a multiple of `reps`: every call launches the same
+    kernels); such a window is taken again, up to `windows` windows. The
+    time is None if no window held every launch: a window that lost
+    events would read too fast."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    per_call = 0.0
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -193,10 +209,11 @@ def device_profile(fn, names, reps=20):
         ours = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and any(k in e.name for k in names)]
-        us = sum(e.time_range.elapsed_us() for e in ours)
-        if us:
-            return us / reps / 1e3, len(ours) / reps
-    return None, 0.0
+        per_call = len(ours) / reps
+        if ours and len(ours) % reps == 0:
+            us = sum(e.time_range.elapsed_us() for e in ours)
+            return us / reps / 1e3, per_call
+    return None, per_call
 
 
 def device_time_ms(fn, names, reps=20):
@@ -212,12 +229,7 @@ def device_time_ms(fn, names, reps=20):
 #   compare); colour distance of a pair inside the geometric gate 15; the
 #   joint kernel of a gated pair 8 (2 mul, add, neg, max, exp, mul,
 #   compare); a kept pair adds 35 multiplies and 35 adds into the moments.
-#   suite, each of the four pair sets: colour distance of a valid pair 10
-#   (a 5-term FMA-chain dot 5, the identity 3, clamp, compare; the pre and
-#   post sets share one); geometric distance of a colour-gated pair 8 (a
-#   3-term chain 3, the identity 3, clamp, compare); a gated pair 12 (two
-#   clamped exponentials, product, sum, count); a gated post pair adds W
-#   (1) and W U(x) (9 lift products, 13 multiplies and 13 adds = 35).
+#   suite: its four pair sets, each as pair stats counts it (below).
 
 def moment_counts(x, fx, mx, y, fy, my, ell, p):
     import torch
@@ -239,23 +251,14 @@ def moment_counts(x, fx, mx, y, fy, my, ell, p):
 
 
 def suite_counts(x, fx, mx, y, fy, my, yt, ell, p):
-    import torch
-    from cvo_slam_tpu_torch.ops import pairwise
-    d2t = pairwise.d2_threshold(torch.tensor(ell), p).item()
-    d2ct = pairwise.d2_color_threshold(p)
-    ops = 0
-    sets = ((y, fy, my, x, fx, mx, True), (yt, fy, my, x, fx, mx, False),
-            (x, fx, mx, x, fx, mx, True), (y, fy, my, y, fy, my, True))
-    for k, (a, fa, ma, b, fb, mb, colour) in enumerate(sets):
-        valid = ma[:, None] & mb[None, :]
-        d2c = ((fa[:, None, :] - fb[None, :, :]) ** 2).sum(-1)
-        cg = valid & (d2c < d2ct)
-        d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
-        g = cg & (d2 < d2t)
-        ops += (10 * int(valid.sum()) if colour else 0) \
-            + 8 * int(cg.sum()) + 12 * int(g.sum())
-        if k == 1:
-            ops += 36 * int(g.sum())
+    """The suite's instructions: pair_stats_counts over its four pair sets
+    (pre: rows y, columns x; post: yt, x, with moments; fixed: x, x;
+    moving: y, y), the geometric gate first as the kernel tests it; bytes:
+    each input read once, the outputs (G, four sums, four counts) written
+    once."""
+    sets = ((y, fy, my, x, fx, mx, False), (yt, fy, my, x, fx, mx, True),
+            (x, fx, mx, x, fx, mx, False), (y, fy, my, y, fy, my, False))
+    ops = sum(pair_stats_counts(*s[:6], ell, p, s[6])[0] for s in sets)
     n, m = x.shape[0], y.shape[0]
     nbytes = n * (3 + 5) * 4 + n + m * (3 + 5 + 3) * 4 + m \
         + (169 + 4) * 4 + 4 * 4
@@ -398,9 +401,15 @@ def kernel_checks(clouds, p, report):
                   f"{rel_de[0]:.2e} {rel_de[1]:.2e}; split {split}",
                   flush=True)
 
-            got = kernels.ip_suite(x, fx, mx, y, fy, my, yt, ell, p)
+            split = {}
+            got = kernels.ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p,
+                                        launch_info=split)
+            again = kernels.ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p)
             want = kernels.ip_suite_plain(x, fx, mx, y, fy, my, yt, ell, p)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"suite: two launches differ (CAP "
+                                     f"{cap}, ell {ell})")
             err = 0.0
             for k in (1, 3, 5, 7, 9):
                 if int(got[k]) != int(want[k]):
@@ -416,7 +425,8 @@ def kernel_checks(clouds, p, report):
                 report["ip_suite"]["max_abs_err"], err)
             print(f"ip_suite CAP {cap} ell {ell}: counts "
                   f"{[int(got[k]) for k in (1, 3, 5, 7)]} inliers "
-                  f"{int(got[9])} equal, max |err| {err:.3e}", flush=True)
+                  f"{int(got[9])} equal, two launches bitwise equal, max "
+                  f"|err| {err:.3e}; split {split}", flush=True)
 
             # pair stats of the loop-closure post set: rows yt, columns x
             for mom in (False, True):
@@ -469,14 +479,14 @@ def kernel_checks(clouds, p, report):
                     device=t_d, per_call=per_call, max_per_call=2)
             kern = lambda: kernels.ip_suite_cuda(  # noqa: E731
                 x, fx, mx, y, fy, my, yt, ell_t, p)
-            t_k, t_d = cuda_time_ms(kern), device_time_ms(
-                kern, DEVICE_NAMES["ip_suite"])
+            t_k = cuda_time_ms(kern)
+            t_d, per_call = device_profile(kern, DEVICE_NAMES["ip_suite"])
             t_p = cuda_time_ms(lambda: kernels.ip_suite_plain(
                 x, fx, mx, y, fy, my, yt, ell_t, p), reps=3)
             ops, nbytes = suite_counts(x, fx, mx, y, fy, my, yt, ell, p)
             b, by = bound_ms(ops, nbytes)
             _record(report["ip_suite"], ell, t_k, t_p, b, by, ops,
-                    device=t_d)
+                    device=t_d, per_call=per_call, max_per_call=1)
             # pair stats: the six calls without moments are the main ones;
             # the two with moments are recorded beside them
             for mom in (True, False):
@@ -498,15 +508,18 @@ def kernel_checks(clouds, p, report):
 def _record(entry, ell, t_k, t_p, b, by, ops, mode="", device=None,
             per_call=None, max_per_call=None):
     """Print one timing: t_k the CUDA-event time per wrapper call (host work
-    included), `device` the kernels' own device time per call (a kernel the
-    profiler did not see fails the phase), per_call the profiler's kernel
+    included), `device` the kernels' own device time per call (None, where
+    no profiler window held every launch, fails the phase), per_call the
+    profiler's kernel
     launches per wrapper call (held at max_per_call when given); keep it
     under times_by_ell (mode-suffixed keys for a second mode) and as the
     entry's headline at the first ell without a mode."""
     tag = f" {mode}" if mode else ""
     if device is None:
-        raise AssertionError(f"{entry['name']}{tag}: the profiler saw none of "
-                             f"its kernels {DEVICE_NAMES[entry['name']]}")
+        raise AssertionError(f"{entry['name']}{tag}: no profiler window held "
+                             f"every launch of its kernels "
+                             f"{DEVICE_NAMES[entry['name']]} (last window "
+                             f"{per_call:g} per call)")
     if max_per_call is not None and per_call > max_per_call:
         raise AssertionError(f"{entry['name']}{tag}: {per_call} kernel "
                              f"launches per call, at most {max_per_call}")
@@ -608,12 +621,13 @@ def flow_step_checks(clouds, p, report):
                  lambda: kernels.step_coeffs_plain(
                     *args, omega, v, ell_t, p), ("step",))):
             t_k = cuda_time_ms(kern)
-            t_d = device_time_ms(kern, DEVICE_NAMES[name])
+            t_d, per_call = device_profile(kern, DEVICE_NAMES[name])
             t_p = cuda_time_ms(plain, reps=3)
             ops, nbytes = flow_step_counts(x, fx, mx, y, fy, my, ell, p,
                                            passes)
             b, by = bound_ms(ops, nbytes)
-            _record(report[name], ell, t_k, t_p, b, by, ops, device=t_d)
+            _record(report[name], ell, t_k, t_p, b, by, ops, device=t_d,
+                    per_call=per_call, max_per_call=len(passes))
 
 
 def transform_gap(a, b):
@@ -631,19 +645,41 @@ def transform_gap(a, b):
         [D[2, 1] - D[1, 2], D[0, 2] - D[2, 0], D[1, 0] - D[0, 1]]))
 
 
-def align_checks(clouds, p, report):
-    """Phase 2, align_fused against align_fused_plain on frames 0 -> 1 at
-    CAP 3072 from the identity at ell 0.15: ell equal, iterations within
-    ALIGN_ITERS_SPREAD, the transform within 1e-4; two launches bitwise
-    equal; time per alignment; the bound over the plain run's iterations
-    (module docstring)."""
+def align_args(seq, k, p):
+    """align_fused's arguments for frames k -> k + 1 of `seq` (a list of
+    clouds): from the identity at ell 0.15."""
+    import torch
+    dev = seq[k][0].device
+    return tuple(seq[k]) + tuple(seq[k + 1]) + (
+        torch.eye(3, device=dev), torch.zeros(3, device=dev),
+        torch.tensor(ELLS[0], device=dev), p)
+
+
+def align_pair_gap(seq, k, p):
+    """align_fused against align_fused_plain on frames k -> k + 1: (kernel
+    iterations, plain iterations, |dt| in metres, angle in radians, kernel
+    ell, plain ell)."""
+    from cvo_slam_tpu_torch.cvo import kernels
+    a = align_args(seq, k, p)
+    R, T, ell, it, _ = kernels.align_fused_cuda(*a)
+    Rp, Tp, ellp, itp, _ = kernels.align_fused_plain(*a)
+    dt, ang = transform_gap((R, T), (Rp, Tp))
+    return int(it), int(itp), dt, ang, float(ell), float(ellp)
+
+
+def align_checks(seq, p, report):
+    """Phase 2, align_fused against align_fused_plain at CAP 3072 from the
+    identity at ell 0.15: on frames 0 -> 1 ell equal, iterations within
+    ALIGN_ITERS_SPREAD, the transform within 1e-4, two launches bitwise
+    equal, time per alignment and the bound over the plain run's
+    iterations (module docstring); on frames 1 -> 2 .. 5 -> 6 iterations
+    within ALIGN_PAIRS_ITERS_SPREAD and the transform within
+    ALIGN_PAIRS_GAP. seq: the sequence's first ALIGN_PAIRS + 1 clouds."""
     import numpy as np
     import torch
     from cvo_slam_tpu_torch.cvo import engine, kernels
-    (x, fx, mx), (y, fy, my) = clouds[CAPS[0]]
-    dev = x.device
-    args = (x, fx, mx, y, fy, my, torch.eye(3, device=dev),
-            torch.zeros(3, device=dev), torch.tensor(ELLS[0], device=dev), p)
+    (x, fx, mx), (y, fy, my) = seq[:2]
+    args = align_args(seq, 0, p)
     launch = {}
     got = kernels.align_fused_cuda(*args, launch_info=launch)
     R, T, ell, iters, _ = got
@@ -671,6 +707,21 @@ def align_checks(clouds, p, report):
         raise AssertionError(f"align_fused: ell {float(ell)} vs "
                              f"{float(ellp)}, |dt| {dt}, angle {ang}")
     report["align_fused"]["max_abs_err"] = max(dt, ang)
+    gaps = []
+    for k in range(1, ALIGN_PAIRS):
+        it, itp, dt_k, ang_k, ell_k, ellp_k = align_pair_gap(seq, k, p)
+        gaps.append(f"{k}->{k + 1}: {it} vs {itp} iterations, {dt_k:.2e} m, "
+                    f"{ang_k:.2e} rad, ell {ell_k} vs {ellp_k}")
+        if abs(it - itp) > ALIGN_PAIRS_ITERS_SPREAD \
+                or max(dt_k, ang_k) > ALIGN_PAIRS_GAP:
+            raise AssertionError(f"align_fused frames {k} -> {k + 1}: {it} "
+                                 f"vs {itp} iterations, |dt| {dt_k}, angle "
+                                 f"{ang_k}")
+        report["align_fused"]["max_abs_err"] = max(
+            report["align_fused"]["max_abs_err"], dt_k, ang_k)
+    print(f"align_fused CAP {CAPS[0]} against its plain version, bars "
+          f"{ALIGN_PAIRS_ITERS_SPREAD} iterations and {ALIGN_PAIRS_GAP} m / "
+          f"rad: {'; '.join(gaps)}", flush=True)
 
     # the bound: both passes at each iteration of the plain run
     seen = []
@@ -693,8 +744,8 @@ def align_checks(clouds, p, report):
     t_d = device_time_ms(lambda: kernels.align_fused_cuda(*args),
                          DEVICE_NAMES["align_fused"], reps=5)
     if t_d is None:
-        raise AssertionError("align_fused: the profiler saw none of its "
-                             f"kernels {DEVICE_NAMES['align_fused']}")
+        raise AssertionError("align_fused: no profiler window held every "
+                             f"launch of {DEVICE_NAMES['align_fused']}")
     t_p = cuda_time_ms(lambda: kernels.align_fused_plain(*args), reps=1,
                        trials=3)
     print(f"align_fused CAP {CAPS[0]}: {t_k:.4f} ms per alignment (device "
@@ -784,23 +835,25 @@ def host_cloud_tensors(pc, device):
     return c.positions, c.features, c.mask
 
 
-def first_pair_clouds(folder, cam, caps=CAPS):
-    """{CAP: [(x, fx, mx), (y, fy, my)]}: frames 0 and 1 of the sequence in
-    `folder` as clouds on the card, at each capacity."""
+def sequence_clouds(folder, cam, cap, n_frames=None):
+    """The first n_frames frames (all by default) of the sequence in
+    `folder` as clouds on the card at capacity `cap`."""
     from cvo_slam_tpu_torch.config import FrontendParams
     from cvo_slam_tpu_torch.data import tum
     from cvo_slam_tpu_torch.frontend.pointcloud import create_pointcloud
     records = tum.load_association(os.path.join(folder, "associate.txt"))
-    images = [tum.load_image(folder, r) for r in records[:2]]
-    clouds = {}
-    for cap in caps:
-        fp = FrontendParams(cloud_capacity=cap)
-        pcs = [create_pointcloud(im.bgr, im.gray, im.depth, cam, fp)
-               for im in images]
-        print(f"CAP {cap}: {[pc.count for pc in pcs]} valid points",
-              flush=True)
-        clouds[cap] = [host_cloud_tensors(pc, "cuda") for pc in pcs]
-    return clouds
+    fp = FrontendParams(cloud_capacity=cap)
+    pcs = [create_pointcloud(im.bgr, im.gray, im.depth, cam, fp)
+           for im in (tum.load_image(folder, r)
+                      for r in records[:n_frames])]
+    print(f"CAP {cap}: {[pc.count for pc in pcs]} valid points", flush=True)
+    return [host_cloud_tensors(pc, "cuda") for pc in pcs]
+
+
+def first_pair_clouds(folder, cam, caps=CAPS):
+    """{CAP: [(x, fx, mx), (y, fy, my)]}: frames 0 and 1 of the sequence in
+    `folder` as clouds on the card, at each capacity."""
+    return {cap: sequence_clouds(folder, cam, cap, 2) for cap in caps}
 
 
 def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
@@ -1022,7 +1075,8 @@ def main() -> int:
         clouds = first_pair_clouds(folder, cam)
         kernel_checks(clouds, p, report)
         flow_step_checks(clouds, p, report)
-        align_checks(clouds, p, report)
+        align_checks(sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1),
+                     p, report)
 
         # -- phase 3: tracking-only SLAM through the CLI's run() on each
         #    backend; phase 4: the whole system; phase 4c: run_odometry;

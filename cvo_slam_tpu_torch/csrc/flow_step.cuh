@@ -295,8 +295,8 @@ __device__ __forceinline__ void sweep(const Clouds& cl, const Split& sp,
 }
 
 // the geometric distance of (row r, column p) before its clamp at 0:
-// (|x|^2 + |y|^2) - 2 x . y, rounded as ident_d2. With a positive d2t the
-// gate max(z, 0) < d2t is z < d2t (geo_cut gives that cut).
+// (|x|^2 + |y|^2) - 2 x . y, rounded as ident_d2_reg. With a positive d2t
+// the gate max(z, 0) < d2t is z < d2t (geo_cut gives that cut).
 __device__ __forceinline__ float geo_z(const Rows& R, int r, float4 p) {
   float dot = R.m2x[r][0] * p.x;
   dot = __fmaf_rn(R.m2x[r][1], p.y, dot);

@@ -1,8 +1,8 @@
-// The pair math shared by every pairwise kernel of the port (ip_suite.cu,
-// and through flow_step.cuh flow_step.cu, align_fused.cu,
-// moment_flow_step.cu and pair_stats.cu): gate constants, squared norms, the
-// FMA-chain dot products of the dot-product distance identity, the clamped
-// kernel exponential and the fixed-order block reductions.
+// The pair math shared by every pairwise kernel of the port (through
+// flow_step.cuh: flow_step.cu, align_fused.cu, moment_flow_step.cu, and
+// through pair_stats.cuh pair_stats.cu and ip_suite.cu): gate constants,
+// squared norms, the dot-product distance identity over an FMA-chain dot,
+// the clamped kernel exponential and the fixed-order block reduction.
 //
 // Every source that includes it is compiled with -fmad=false, so each
 // operation rounds as the same operation of the plain PyTorch versions
@@ -14,8 +14,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int TILE = 128;   // threads per block; rows per block; columns per tile
 
 struct Consts {
   float log_ratio;  // log(sp_thres / sigma^2)
@@ -40,26 +38,9 @@ __device__ __forceinline__ float sq5(const float* a) {
   return s;
 }
 
-// dot product as a chain of fused multiply-adds in column order
-// (pairwise.pair_dots; -fmad=false leaves explicit __fmaf_rn alone)
-__device__ __forceinline__ float col_dot(const float* r,
-                                         const float (*col)[TILE], int k,
-                                         int dim) {
-  float dot = r[0] * col[0][k];
-  for (int c = 1; c < dim; ++c) dot = __fmaf_rn(r[c], col[c][k], dot);
-  return dot;
-}
-
-// max(rsq + csq - 2 dot, 0)
-__device__ __forceinline__ float ident_d2(float rsq, float csq,
-                                          const float* r,
-                                          const float (*col)[TILE], int k,
-                                          int dim) {
-  return fmaxf(rsq + csq - 2.f * col_dot(r, col, k, dim), 0.f);
-}
-
-// the same distance for a column held in registers (c[0..dim-1]): the
-// rounding of ident_d2, operation by operation
+// max(rsq + csq - 2 r . c, 0), the dot a chain of fused multiply-adds in
+// coordinate order (pairwise.pair_dots; -fmad=false leaves explicit
+// __fmaf_rn alone), for a row r and a column c of dim coordinates
 __device__ __forceinline__ float ident_d2_reg(float rsq, float csq,
                                               const float* r, const float* c,
                                               int dim) {
@@ -72,32 +53,6 @@ __device__ __forceinline__ float ident_d2_reg(float rsq, float csq,
 // (the gates bound the exponent at ~-5) and keeps gate-free values finite
 __device__ __forceinline__ float clamped_kernel(float scale, float arg) {
   return scale * expf(fmaxf(arg, -20.f));
-}
-
-// fixed-order block tree reduction of one float per thread (blockDim.x ==
-// TILE); the result is returned to every thread
-__device__ float block_sum(float v, float* buf) {
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = TILE / 2; s > 0; s >>= 1) {
-    if ((int)threadIdx.x < s) buf[threadIdx.x] += buf[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float r = buf[0];
-  __syncthreads();
-  return r;
-}
-
-__device__ int block_count(int v, int* buf) {
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = TILE / 2; s > 0; s >>= 1) {
-    if ((int)threadIdx.x < s) buf[threadIdx.x] += buf[threadIdx.x + s];
-    __syncthreads();
-  }
-  const int r = buf[0];
-  __syncthreads();
-  return r;
 }
 
 // fixed-order reduction of NV values per thread over a block of NWARPS

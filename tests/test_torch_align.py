@@ -30,7 +30,7 @@ from cvo_slam_tpu_torch.config import from_reference
 from cvo_slam_tpu_torch.cvo import cuda_build, kernels
 from cvo_slam_tpu_torch.cvo import engine as tengine
 from cvo_slam_tpu_torch.ops import cubic, se3
-from tests.test_pairwise import make_clouds
+from test_pairwise import make_clouds
 
 torch.set_num_threads(2)
 P = CvoParams()
@@ -300,8 +300,8 @@ def test_tracking_pallas_matches_jax(tmp_path, monkeypatch):
     from cvo_slam_tpu.data import synthetic, tum
     from cvo_slam_tpu_torch.app import run_slam as trun
     from cvo_slam_tpu_torch.data import tum as ttum
-    from tests.test_torch_tracking import (CAM, SMALL_FRONTEND, STEP_TWIST,
-                                           _rot_angle)
+    from test_torch_tracking import (CAM, SMALL_FRONTEND, STEP_TWIST,
+                                     _rot_angle)
     n_frames = 9
     folder = str(tmp_path)
     synthetic.make_sequence(folder, CAM, n_frames=n_frames,
@@ -512,8 +512,8 @@ def test_library_name_hashes_included_headers(tmp_path):
         f.write("\n// edited\n")
     after = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
     changed = {s for s in cuda_build.SOURCES if before[s] != after[s]}
-    # every source includes it, ip_suite.cu directly, the others through
-    # flow_step.cuh
+    # every source includes it through flow_step.cuh (pair_stats.cu and
+    # ip_suite.cu through pair_stats.cuh, which includes flow_step.cuh)
     assert changed == {"ip_suite.cu", "flow_step.cu", "align_fused.cu",
                        "moment_flow_step.cu", "pair_stats.cu"}
     with open(os.path.join(csrc, "flow_step.cuh"), "a") as f:
@@ -521,7 +521,12 @@ def test_library_name_hashes_included_headers(tmp_path):
     again = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
     assert {s for s in cuda_build.SOURCES if after[s] != again[s]} \
         == {"flow_step.cu", "align_fused.cu", "moment_flow_step.cu",
-            "pair_stats.cu"}
+            "pair_stats.cu", "ip_suite.cu"}
+    with open(os.path.join(csrc, "pair_stats.cuh"), "a") as f:
+        f.write("\n// edited\n")
+    last = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
+    assert {s for s in cuda_build.SOURCES if again[s] != last[s]} \
+        == {"pair_stats.cu", "ip_suite.cu"}
     assert cuda_build._so_path("ip_suite.cu") \
         == cuda_build._so_path("ip_suite.cu", cuda_build.CSRC_DIR)
 

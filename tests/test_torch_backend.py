@@ -27,9 +27,9 @@ from cvo_slam_tpu_torch.config import arrays_from_reference, from_reference
 from cvo_slam_tpu_torch.cvo import engine as tengine
 from cvo_slam_tpu_torch.ops import pairwise as tpw
 from cvo_slam_tpu_torch.ops import se3 as tse3
-from tests.test_ba import K, make_problem
-from tests.test_lm import build_chain
-from tests.test_torch_engine import XI, _pair, _port_cloud
+from test_ba import K, make_problem
+from test_lm import build_chain
+from test_torch_engine import XI, _pair, _port_cloud
 
 torch.set_num_threads(2)
 P = CvoParams()

@@ -14,7 +14,7 @@ from cvo_slam_tpu.cvo import engine as jengine
 from cvo_slam_tpu.ops import se3 as jse3
 from cvo_slam_tpu_torch.config import from_reference
 from cvo_slam_tpu_torch.cvo import engine as tengine
-from tests.test_engine import structured_cloud
+from test_engine import structured_cloud
 
 torch.set_num_threads(2)
 P = CvoParams()

@@ -19,7 +19,7 @@ from cvo_slam_tpu.ops import se3 as jse3
 from cvo_slam_tpu_torch.config import from_reference
 from cvo_slam_tpu_torch.cvo import kernels
 from cvo_slam_tpu_torch.ops import pairwise as tpw
-from tests.test_pairwise import make_clouds
+from test_pairwise import make_clouds
 
 torch.set_num_threads(2)
 P = CvoParams()
@@ -356,18 +356,48 @@ def test_wrappers_reject_bad_inputs():
         kernels.pair_stats(y.to("meta"), fy, my, x, fx, mx, 0.1, TP)
 
 
+@pytest.mark.parametrize("cloud", ["fixed", "moving"])
+def test_suite_wrapper_rejects_unaligned_columns(cloud):
+    """The suite stages both clouds as columns (the fixed one for pre, post
+    and fixed, the moving one for the moving self set) with 16-byte copies:
+    a view 4 bytes into its storage is refused before any build."""
+    x, fx, mx, y, fy, my = [torch.as_tensor(a)
+                            for a in _clouds(3, 256, 100, 100)]
+    args = dict(x=x, fx=fx, mx=mx, y=y, fy=fy, my=my)
+    pos = args["x" if cloud == "fixed" else "y"]
+    args["x" if cloud == "fixed" else "y"] = \
+        torch.empty(pos.numel() + 1)[1:].view_as(pos).copy_(pos)
+    with pytest.raises(ValueError, match=f"{cloud} positions is not 16-byte"):
+        kernels.ip_suite_cuda(**args, yt=y, ell=0.1, p=TP)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check")
 
 
+def _suite_launches_per_call(fn):
+    """Kernel launches of one call of fn (the suite's, by profiler name)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "suite_sweep" in e.name)
+
+
 @pytest.mark.gpu
-def test_cuda_kernels_match_plain():
+@pytest.mark.parametrize("cap,n,m", [(250, 240, 190), (3000, 2900, 2800)])
+def test_cuda_kernels_match_plain(cap, n, m):
     """On a card: the moment and suite kernels against their plain versions
-    (CAP 250); the moment kernel's pass-1 bitmask equal bit for bit to the
-    moment form's keep, and two launches bitwise equal."""
+    (CAP 250 and 3000); the moment kernel's pass-1 bitmask equal bit for bit
+    to the moment form's keep; two launches of each bitwise equal; the
+    suite in one launch per call."""
     _need_card()
-    arrays, yt = _suite_inputs(13, 250, 240, 190)
+    arrays, yt = _suite_inputs(13, cap, n, m)
     x, fx, mx, y, fy, my = [torch.as_tensor(a).cuda() for a in arrays]
     center, U = tpw.step_moment_basis(x, mx)
     U = U.contiguous()
@@ -377,7 +407,8 @@ def test_cuda_kernels_match_plain():
         want = kernels.moment_flow_step_plain(x, y, fx, fy, mx, my, U,
                                               center, ell, TP)
         _assert_moment([g.cpu() for g in got], [w.cpu() for w in want])
-        bits = torch.empty((8, 250), dtype=torch.int32, device="cuda")
+        bits = torch.empty((-(-cap // 32), cap), dtype=torch.int32,
+                           device="cuda")
         first = kernels.moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, TP,
                                          keep_bits=bits)
         again = kernels.moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, TP)
@@ -385,9 +416,14 @@ def test_cuda_kernels_match_plain():
         assert torch.equal(bits.cpu(), kernels.moment_keep_bits_plain(
             *[t.cpu() for t in (x, y, fx, fy, mx, my)], ell, TP))
         ytc = torch.as_tensor(yt).cuda()
-        got = kernels.ip_suite(x, fx, mx, y, fy, my, ytc, ell, TP)
-        want = kernels.ip_suite_plain(x, fx, mx, y, fy, my, ytc, ell, TP)
+        args = (x, fx, mx, y, fy, my, ytc, ell, TP)
+        got = kernels.ip_suite(*args)
+        want = kernels.ip_suite_plain(*args)
         _assert_suite([g.cpu() for g in got], [w.cpu() for w in want])
+        again = kernels.ip_suite_cuda(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert _suite_launches_per_call(
+            lambda: kernels.ip_suite_cuda(*args)) == 1
 
 
 @pytest.mark.gpu

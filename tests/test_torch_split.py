@@ -1,8 +1,9 @@
 """Port, per-pair kernels' bookkeeping (CPU): the work split that
 cvo_slam_tpu_torch.cvo.kernels.plan_split makes for csrc/flow_step.cu,
 csrc/align_fused.cu, csrc/moment_flow_step.cu (pass 1) and
-csrc/pair_stats.cu, and the keep bitmask that their pass 1 writes and
-pass 2 walks.
+csrc/pair_stats.cu, the joint split of the suite's four pair sets
+(plan_sets, csrc/ip_suite.cu) with its scratch, and the keep bitmask that
+the per-pair kernels' pass 1 writes and pass 2 walks.
 
 The kernels read the split as csrc/flow_step.cuh's make_split and item_of
 do, which SplitPlan.item repeats; the card's runs (chip_smoke.py) hold the
@@ -16,7 +17,7 @@ from cvo_slam_tpu.config import CvoParams
 from cvo_slam_tpu_torch.config import from_reference
 from cvo_slam_tpu_torch.cvo import kernels
 from cvo_slam_tpu_torch.ops import pairwise
-from tests.test_pairwise import make_clouds
+from test_pairwise import make_clouds
 
 TP = from_reference(CvoParams())
 # rows per work item and columns per tile of csrc/flow_step.cuh
@@ -118,6 +119,105 @@ def test_plan_of_the_redesigned_kernels(kernel, rows, cols, items,
     assert (plan.row_tiles, plan.chunks, plan.tiles_per_chunk,
             plan.items) == items
     assert len(_covered(plan)) == plan.row_tiles * plan.col_tiles
+
+
+# (fixed, moving) capacities of the suite, with N != M and odd sizes
+SUITE_SHAPES = [(1, 1), (1, 129), (129, 1), (250, 129), (129, 3000),
+                (3000, 2999), (3072, 3000), (3072, 3072)]
+
+
+def _suite_plans(n, m, resident):
+    return kernels.plan_sets(kernels.suite_shapes(n, m), resident, ROWS, COLS)
+
+
+@pytest.mark.parametrize("n,m", SUITE_SHAPES)
+@pytest.mark.parametrize("resident", [1, 7, 660, 10 ** 6])
+def test_suite_plan_covers_every_tile_once(n, m, resident):
+    """The suite's four pair sets, planned as one grid: each set's (row
+    tile, column tile) pairs covered once, rows and columns as the kernel
+    reads them (pre y x, post yt x, fixed x x, moving y y), one count of
+    tiles per chunk for every set (at most the set's tiles), the least
+    waves x tiles per item over all sets' items, the finer on a tie."""
+    plans = _suite_plans(n, m, resident)
+    assert [(q.n, q.m) for q in plans] == [(m, n), (m, n), (n, n), (m, m)]
+    for q in plans:
+        assert q.row_tiles == -(-q.n // ROWS)
+        assert q.col_tiles == -(-q.m // COLS)
+        seen = _covered(q)
+        assert len(seen) == len(set(seen)) == q.row_tiles * q.col_tiles
+        assert (q.chunks - 1) * q.tiles_per_chunk < q.col_tiles \
+            <= q.chunks * q.tiles_per_chunk
+    per = max(q.tiles_per_chunk for q in plans)
+    assert all(q.tiles_per_chunk == min(per, q.col_tiles) for q in plans)
+
+    def cost(k):
+        items = sum(q.row_tiles * -(-q.col_tiles // k) for q in plans)
+        return -(-items // resident) * k
+
+    best = min(cost(k) for k in range(1, max(q.col_tiles for q in plans) + 1))
+    assert cost(per) == best
+    assert all(cost(k) > best for k in range(1, per))
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (129, 3000), (3000, 2999),
+                                 (3072, 3072)])
+@pytest.mark.parametrize("resident", [660, 528])
+def test_suite_scratch_of_the_plan(n, m, resident):
+    """The suite's scratch follows from its plans: per set its items'
+    partials (170 floats for post, one for the others) and counts, its
+    level-1 groups of ~sqrt(items) items, each set's partials right after
+    the one before (the offsets the kernel is given), and out_n's four
+    counts, the level-2 ticket and one level-1 ticket per group."""
+    plans = _suite_plans(n, m, resident)
+    items = [q.items for q in plans]
+    groups = [-(-i // kernels.finalize_group(i)) for i in items]
+    nf = (1, 170, 1, 1)
+    sizes = [(i * f, i, g * f, g) for i, g, f in zip(items, groups, nf)]
+    shapes, offsets = kernels.suite_scratch(plans)
+    assert shapes == dict(
+        fpart=(sum(i * f for i, f in zip(items, nf)),),
+        npart=(sum(items),),
+        gpart=(sum(g * f for g, f in zip(groups, nf)),),
+        gnpart=(sum(groups),),
+        out_f=(173,),
+        out_n=(4 + 1 + sum(groups),))
+    assert offsets[0] == (0, 0, 0, 0)
+    for s in range(1, 4):
+        assert offsets[s] == tuple(o + k for o, k in zip(offsets[s - 1],
+                                                         sizes[s - 1]))
+    assert tuple(o + k for o, k in zip(offsets[3], sizes[3])) == tuple(
+        shapes[k][0] for k in ("fpart", "npart", "gpart", "gnpart"))
+    for i, g in zip(items, groups):
+        group = kernels.finalize_group(i)
+        assert (g - 1) * group < i <= g * group
+        assert (group - 1) ** 2 < i <= group ** 2
+
+
+@pytest.mark.parametrize("resident", [660, 528])
+@pytest.mark.parametrize("cap,items", [(3072, (6, 96, 1, 576)),
+                                       (3000, (6, 94, 1, 564))])
+def test_plan_of_the_suite(cap, items, resident):
+    """The suite at CAP 3072 (and 3000) on a card that holds 5 or 4 of its
+    blocks on each of 132 SMs: every set one column tile per item, 4 x 576
+    = 2304 work items in one launch at CAP 3072, where the first version
+    ran a 24 x 8 grid and two more launches."""
+    plans = _suite_plans(cap, cap, resident)
+    assert all((q.row_tiles, q.chunks, q.tiles_per_chunk, q.items) == items
+               for q in plans)
+    assert sum(q.items for q in plans) == 4 * items[3]
+    with pytest.raises(ValueError):
+        kernels.plan_sets(kernels.suite_shapes(0, cap), resident, ROWS, COLS)
+    with pytest.raises(ValueError):
+        kernels.plan_sets((), resident, ROWS, COLS)
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+def test_plan_split_is_one_set(n, m):
+    """pair stats' and the per-pair kernels' split is plan_sets of one set:
+    the suite's rule, applied to one grid."""
+    for resident in (1, 660):
+        assert kernels.plan_split(n, m, resident, ROWS, COLS) \
+            == kernels.plan_sets(((n, m),), resident, ROWS, COLS)[0]
 
 
 @pytest.mark.parametrize("m", [1, 31, 32, 33, 129, 3000])
