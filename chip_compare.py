@@ -4,6 +4,7 @@
 Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_compare.py e2e ROOT
     python3 chip_compare.py kernels ROOT
+    python3 chip_compare.py speculation ROOT
 
 e2e: chip_smoke.py's end-to-end phases on the package under ROOT: tracking
 under pallas (16 frames) and pallas_iter (8 frames), each with its
@@ -35,7 +36,13 @@ differences of the sums into different iteration counts); last,
 chip_smoke's phase 3 (tracking under pallas_mom) with its iterations per
 alignment. Run several in one call to compare them.
 
-Both print a result line per phase and exit non-zero without a CUDA card.
+speculation: chip_smoke's tracking phase (16 frames; pallas_iter 8) on
+each backend with CVO_SLAM_SPECULATE=0, 1, 1, 0 in turns: ms/frame and the
+speculation's hits, misses and discards per run, and whether the runs of a
+backend wrote the same trajectory, line for line.
+
+Each mode prints a result line per phase and exits non-zero without a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -97,8 +104,8 @@ def e2e(root: str) -> int:
         cs.tracking(folder, gt, report, card, "pallas_iter", cs.ITER_FRAMES)
         decisions["tracking pallas_iter"] = keyframe_decisions(folder)
         cs.odometry(folder, gt, card)
-        st = cs.slam(os.path.join(folder, "slam"), report, card,
-                     backend="pallas")
+        st, _ = cs.slam(os.path.join(folder, "slam"), report, card,
+                        backend="pallas")
         decisions["SLAM pallas"] = keyframe_decisions(
             os.path.join(folder, "slam"))
     print(f"keyframe decisions per tracked frame: {decisions}", flush=True)
@@ -106,6 +113,37 @@ def e2e(root: str) -> int:
         / st["lc_candidates"]
     print(f"verify per candidate (pallas): {per_cand:.1f} ms over "
           f"{st['lc_candidates']} candidates", flush=True)
+    return 0
+
+
+def speculation_mode(root: str) -> int:
+    import numpy as np
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    cs = _chip_smoke()
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS
+    from cvo_slam_tpu_torch.cvo import cuda_build, kernels
+    from cvo_slam_tpu_torch.data import synthetic
+    cuda_build.build_all()
+    card = cs.card_line()
+    report = {k.name: dict(name=k.name, launches=0) for k in kernels.KERNELS}
+    with tempfile.TemporaryDirectory(prefix="chip_compare_") as folder:
+        gt = synthetic.make_sequence(folder, CAMERA_PRESETS["TUM1"],
+                                     n_frames=cs.N_FRAMES)
+        for backend in ("pallas_mom", "pallas", "pallas_iter"):
+            n = cs.ITER_FRAMES if backend == "pallas_iter" else cs.N_FRAMES
+            runs = [cs.tracking(folder, gt, report, card, backend, n, spec)
+                    for spec in ("0", "1", "1", "0")]
+            row = "; ".join(
+                f"SPECULATE={spec}: {np.mean(r['t_frame']):.1f} / "
+                f"{np.median(r['t_frame']):.1f} ms/frame, "
+                f"{r['stats']['speculation']}"
+                for spec, r in zip(("0", "1", "1", "0"), runs))
+            same = all(r["lines"] == runs[0]["lines"] for r in runs)
+            print(f"speculation under {backend} on {card}: {row}; "
+                  f"trajectories equal: {same}", flush=True)
+            if not same:
+                return 1
     return 0
 
 
@@ -282,6 +320,8 @@ def main() -> int:
         return e2e(sys.argv[2])
     if sys.argv[1:2] == ["kernels"] and len(sys.argv) == 3:
         return kernels_mode(sys.argv[2])
+    if sys.argv[1:2] == ["speculation"] and len(sys.argv) == 3:
+        return speculation_mode(sys.argv[2])
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -74,11 +74,39 @@ Phases; any failure exits non-zero:
      the keyframe-path stages beside phase 4's;
   4c. app.run_odometry on the 16-frame sequence under pallas: 15 finite
      poses, align_fused launched 15 times; ms/frame;
+  3d. (run after 3c) the tracking of phase 3b with CVO_SLAM_SPECULATE=1:
+     the trajectory equal to phase 3b's line for line (bitwise), at least
+     one speculation consumed, align_fused and the suite once per
+     alignment plus twice per discarded speculation; hits, misses and
+     ms/frame beside phase 3b's. Phases 3-4d run with speculation off, so
+     their launch counts are exact;
+  4, 4b (loop-closure round): each SLAM phase prints its descriptor
+     matchings on the card and on the host, and per round the ransac,
+     verify and overlap ms; at ORB 5000 the device matcher must run at
+     least once; in phase 4 every device matching is held byte for byte
+     against the host match_bow on the same keyframes;
+  4d. the walk of phase 4b with UseMultiThreading (the async backend):
+     the same keyframe ids, timestamps and count as phase 4b, positions
+     within 1e-6 m, at least one accepted edge; frame-loop and whole run()
+     time beside phase 4b's;
+  4e. app.run_odometry --adaptive on the 16-frame sequence: 15 finite
+     poses, the moment kernel at least once per alignment and no other
+     kernel; ms/frame and ATE;
+  4f. data.checkpoint: 8 frames tracked under pallas, saved after frame 4
+     and resumed in a fresh tracker, poses bitwise equal to the
+     uninterrupted run;
+  4g. eval.suite.run_suite on fast_rotation_100 and noisy_loop_120, full
+     length, under pallas with the default speculation: tracking and SLAM
+     ATE under tests/test_eval.py's bars (SUITE_BARS); ATE, RPE, loops,
+     fps and keyframe-path ms per sequence;
   5. one engine.frame_step under torch.profiler on each backend: device
      busy share, kernel launches per frame and per align iteration, and
      the device time by kernel name (top 10);
-  6. a JSON line with every kernel's numbers, the card line, and last
-     {"ok": true, "device": {...}}.
+  6. a JSON line with every kernel's numbers, the run's seconds, the card
+     line, and last {"ok": true, "device": {...}}.
+Each phase prints its wall time. No earlier phase is cut in depth: the
+whole run took 322 s of the 1200 s limit on an NVIDIA H100 80GB HBM3 at
+700.00 W (its largest part is phase 4g's generation of 220 frames).
 
 The bound of a kernel is the larger of issued fp32 instructions / 33.5 T
 instructions/s (132 SMs x 128 lanes x 1.98 GHz on an H100 SXM at 700 W)
@@ -121,6 +149,10 @@ CAPS = (3072, 3000)
 ELLS = (0.15, 0.06)
 TWIST = (0.02, -0.01, 0.03, 0.05, 0.02, -0.04)   # post transform of the suite
 ITER_FRAMES = 8            # length of the pallas_iter tracking phase
+# eval.suite sequences of phase 4g and their tracking / SLAM ATE bars in
+# metres: tests/test_eval.py:94 (fast rotation with an exposure ramp) and
+# :162 (the noisy loop)
+SUITE_BARS = {"fast_rotation_100": 0.01, "noisy_loop_120": 0.03}
 # align_fused against its plain version: iteration counts may differ by up
 # to this many (measured at CAP 3072 on an NVIDIA H100 80GB HBM3 on this
 # script's frames 0 -> 1: 37 vs 40 with the sums of the first kernel, 45 vs
@@ -761,17 +793,30 @@ def align_checks(seq, p, report):
 
 
 @contextlib.contextmanager
-def backend_env(name):
-    """CVO_SLAM_BACKEND set to `name` for the block, restored after."""
-    old = os.environ.get("CVO_SLAM_BACKEND")
-    os.environ["CVO_SLAM_BACKEND"] = name
+def env(**values):
+    """The environment variables `values` set for the block (None unsets
+    one), restored after."""
+    old = {k: os.environ.get(k) for k in values}
+
+    def put(items):
+        for k, v in items:
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    put(values.items())
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["CVO_SLAM_BACKEND"]
-        else:
-            os.environ["CVO_SLAM_BACKEND"] = old
+        put(old.items())
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Prints the wall time of the block."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def profile_frame(clouds, p, backend):
@@ -856,24 +901,28 @@ def first_pair_clouds(folder, cam, caps=CAPS):
     return {cap: sequence_clouds(folder, cam, cap, 2) for cap in caps}
 
 
-def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
-    """Phases 3, 3b, 3c: tracking-only SLAM on `backend` over the first
-    n_frames frames, counters set to 0 just before, read just after.
-    Returns the tracked frames' ms/frame."""
+def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES,
+             speculate="0"):
+    """Phases 3, 3b, 3c, 3d: tracking-only SLAM on `backend` over the first
+    n_frames frames with CVO_SLAM_SPECULATE=`speculate`, counters set to 0
+    just before, read just after. Returns the tracked frames' ms/frame
+    (t_frame), the lines of Tracking_trajectory.txt and run()'s stats."""
     import numpy as np
     from cvo_slam_tpu_torch.app import run_slam
     from cvo_slam_tpu_torch.config import SlamConfig
     from cvo_slam_tpu_torch.cvo import kernels
     from cvo_slam_tpu_torch.data import tum
     cfg = SlamConfig.default_shipped().replace(OnlyTracking=True)
-    with backend_env(backend):
+    with env(CVO_SLAM_BACKEND=backend, CVO_SLAM_SPECULATE=speculate):
         kernels.reset_launch_counts()
         stats = run_slam.run(folder, "associate.txt", "TUM1", cfg,
                              max_frames=n_frames, device="cuda")
         launches = {k.name: k.launches for k in kernels.KERNELS}
 
-    ts, poses = tum.read_trajectory(os.path.join(folder,
-                                                 "Tracking_trajectory.txt"))
+    path = os.path.join(folder, "Tracking_trajectory.txt")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    ts, poses = tum.read_trajectory(path)
     if len(ts) != n_frames or not np.isfinite(poses).all():
         raise AssertionError(f"{len(ts)} poses for {n_frames} frames, "
                              f"finite: {np.isfinite(poses).all()}")
@@ -887,8 +936,9 @@ def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
     kf = [r["kf_iters"] for r in tracked]
     iters = odo + kf
     t_frame = [r["t_frame_s"] * 1e3 for r in tracked]
-    # alignments: one bootstrap (odometry only) + two per tracked frame
-    n_align = 1 + 2 * len(tracked)
+    # alignments: one bootstrap (odometry only) + two per tracked frame,
+    # and two per speculative frame_step that was thrown away
+    n_align = 1 + 2 * len(tracked) + 2 * stats["speculation"]["discards"]
     print(f"tracking ({stats['backend']}) {n_frames} frames 640x480 CAP "
           f"3072 on {card}: {np.mean(t_frame):.1f} ms/frame mean, "
           f"{np.median(t_frame):.1f} median over {len(tracked)} tracked "
@@ -917,7 +967,7 @@ def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES):
             report[name]["launches"] = n
     if err.max() >= 0.05:
         raise AssertionError(f"position error {err.max()} m >= 0.05 m")
-    return t_frame
+    return dict(t_frame=t_frame, lines=lines, stats=stats)
 
 
 def loop_trajectory(n_out):
@@ -935,24 +985,64 @@ def loop_trajectory(n_out):
 
 
 def slam(folder, report, card, device="cuda", cam=None, cfg=None,
-         backend="pallas_mom"):
-    """Phases 4 and 4b: the whole SLAM system on an out-and-back sequence
-    on `backend`, counters set to 0 just before run() and read just
-    after."""
+         backend="pallas_mom", use_async=False, check_matcher=False):
+    """Phases 4, 4b and 4d: the whole SLAM system on an out-and-back
+    sequence on `backend` (with UseMultiThreading: the async backend),
+    without speculation, counters set to 0 just before run() and read just
+    after. With check_matcher, every device descriptor matching is held
+    against the host match_bow on the same keyframes, byte for byte.
+    Returns run()'s stats and the keyframes as (id, timestamp, pose)."""
     import numpy as np
     from cvo_slam_tpu_torch.app import run_slam
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
     from cvo_slam_tpu_torch.cvo import kernels
     from cvo_slam_tpu_torch.data import synthetic, tum
+    from cvo_slam_tpu_torch.features import matcher
     cam = cam or CAMERA_PRESETS["TUM1"]
-    cfg = cfg or SlamConfig.default_shipped()
+    cfg = (cfg or SlamConfig.default_shipped()).replace(
+        UseMultiThreading=use_async)
     Gs = loop_trajectory(SLAM_OUT)
-    gt = synthetic.make_sequence(folder, cam, trajectory=Gs)
+    gt = np.array([np.linalg.inv(G) for G in Gs])
+    if not os.path.exists(os.path.join(folder, "associate.txt")):
+        synthetic.make_sequence(folder, cam, trajectory=Gs)
     gt_ts = [f"{1000.0 + 0.05 * k:.6f}" for k in range(len(Gs))]
-    with backend_env(backend):
-        kernels.reset_launch_counts()
-        stats = run_slam.run(folder, "associate.txt", cam, cfg, device=device)
-        launches = {k.name: k.launches for k in kernels.KERNELS}
+    trackers, checked = [], dict(calls=0, differ=0)
+    build, fetch = run_slam.build_tracker, matcher.fetch_match_bow
+
+    def build_and_keep(*args, **kw):
+        trackers.append(build(*args, **kw))
+        return trackers[-1]
+
+    def fetch_and_check(fut, ref, cur, nn_ratio, check_orientation=True):
+        got = fetch(fut, ref, cur, nn_ratio, check_orientation)
+        want = matcher.match_bow(ref, cur, nn_ratio, check_orientation)
+        checked["calls"] += 1
+        checked["differ"] += not (got.dtype == want.dtype
+                                  and got.shape == want.shape
+                                  and got.tobytes() == want.tobytes())
+        return got
+
+    run_slam.build_tracker = build_and_keep
+    if check_matcher:
+        matcher.fetch_match_bow = fetch_and_check
+    try:
+        with env(CVO_SLAM_BACKEND=backend, CVO_SLAM_SPECULATE="0"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            stats = run_slam.run(folder, "associate.txt", cam, cfg,
+                                 device=device)
+            # the whole call: the frame loop (wall_s), then the writers,
+            # which wait for an async backend's backlog
+            stats["run_s"] = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels.KERNELS}
+    finally:
+        run_slam.build_tracker, matcher.fetch_match_bow = build, fetch
+    graph = trackers[0].graph
+    keyframes = [(kf.id, kf.timestamp, kf.pose.copy())
+                 for kf in graph.keyframes()]
+    rounds = [(round(r["ransac"], 1), round(r["verify"], 1),
+               round(r["overlap"], 1), r["n_cands"], r["n_match_device"])
+              for r in graph.lc_stage_ms]
 
     ts, poses = tum.read_trajectory(os.path.join(folder,
                                                  "Tracking_trajectory.txt"))
@@ -964,7 +1054,8 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
         rows = [line.split() for line in f if line.strip()]
     stages = {k: round(v["mean"], 1)
               for k, v in stats.get("keyframe_path_ms", {}).items()}
-    print(f"SLAM ({stats['backend']}) {stats['frames']} frames "
+    mode = "async backend" if use_async else "synchronous backend"
+    print(f"SLAM ({stats['backend']}, {mode}) {stats['frames']} frames "
           f"{cam.width}x{cam.height} CAP {cfg.frontend.cloud_capacity} on "
           f"{card}: {stats['keyframes']} keyframes, "
           f"{stats.get('lc_rounds', 0)} loop-closure rounds, "
@@ -973,7 +1064,11 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
           f"{launches}; ms per keyframe event by stage {stages}; "
           f"loop-closure sub-stages "
           f"{ {k: round(v['mean'], 1) for k, v in stats.get('lc_stage_ms', {}).items()} }; "
-          f"wall {stats['wall_s']:.1f} s; tracking ATE {ate_track:.4f} m, "
+          f"per round (ransac ms, verify ms, overlap ms, candidates, device "
+          f"matchings) {rounds}; descriptor matchings {stats.get('lc_matches')}"
+          f"{'; device pairs held against the host match_bow: ' + str(checked) if check_matcher else ''}; "
+          f"wall {stats['wall_s']:.1f} s (frame loop), {stats['run_s']:.1f} s "
+          f"(run() in all); tracking ATE {ate_track:.4f} m, "
           f"SLAM ATE {ate_slam:.4f} m", flush=True)
     align = "align_fused" if backend == "pallas" else "moment_flow_step"
     used = (align, "ip_suite", "pair_stats")
@@ -993,12 +1088,38 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
         report["pair_stats"]["launches"] = launches["pair_stats"]
     if stats["lc_num"] < 1:
         raise AssertionError("no loop-closure edge was accepted")
+    if stats["lc_matches"]["device"] < 1:
+        raise AssertionError(f"the device matcher never ran at ORB "
+                             f"{cam.orb_n_features}: {stats['lc_matches']}")
+    if check_matcher and (checked["differ"]
+                          or checked["calls"] != stats["lc_matches"]["device"]):
+        raise AssertionError(f"device matcher against match_bow: {checked}")
     if any(len(r) != 62 for r in rows):
         raise AssertionError(f"loop_closure.txt rows of "
                              f"{sorted({len(r) for r in rows})} fields")
     if not ate_slam < 0.05:
         raise AssertionError(f"SLAM ATE {ate_slam} m >= 0.05 m")
-    return stats
+    return stats, keyframes
+
+
+def async_backend(folder, report, card, sync):
+    """Phase 4d: the SLAM walk under pallas with UseMultiThreading against
+    phase 4b's synchronous run `sync` (stats, keyframes): the same keyframe
+    ids, timestamps and count, poses within 1e-6 m, an accepted edge."""
+    import numpy as np
+    stats, kfs = slam(folder, report, card, backend="pallas",
+                      use_async=True)
+    want = sync[1]
+    gap = max((float(np.abs(a[2][:3, 3] - b[2][:3, 3]).max())
+               for a, b in zip(kfs, want)), default=0.0)
+    print(f"async backend: {len(kfs)} keyframes (synchronous {len(want)}), "
+          f"max keyframe position gap {gap:.3e} m; frame loop "
+          f"{stats['wall_s']:.1f} s against {sync[0]['wall_s']:.1f} s "
+          f"synchronous, run() in all {stats['run_s']:.1f} s against "
+          f"{sync[0]['run_s']:.1f} s", flush=True)
+    if [k[:2] for k in kfs] != [k[:2] for k in want] or not gap <= 1e-6:
+        raise AssertionError("the async backend's keyframes differ from the "
+                             "synchronous run's")
 
 
 def odometry(folder, gt, card):
@@ -1009,7 +1130,7 @@ def odometry(folder, gt, card):
     from cvo_slam_tpu_torch.config import SlamConfig
     from cvo_slam_tpu_torch.cvo import kernels
     from cvo_slam_tpu_torch.data import tum
-    with backend_env("pallas"):
+    with env(CVO_SLAM_BACKEND="pallas"):
         kernels.reset_launch_counts()
         stats = run_odometry.run(folder, "associate.txt", "TUM1",
                                  SlamConfig.default_shipped(), device="cuda")
@@ -1028,6 +1149,99 @@ def odometry(folder, gt, card):
         raise AssertionError(f"run_odometry launches {launches}")
 
 
+def adaptive_odometry(folder, gt, card):
+    """Phase 4e: app.run_odometry --adaptive on the tracking sequence,
+    counters set to 0 just before, read just after: 15 finite poses, the
+    moment kernel at least once per alignment and no other kernel."""
+    import numpy as np
+    from cvo_slam_tpu_torch.app import run_odometry
+    from cvo_slam_tpu_torch.config import SlamConfig
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.data import tum
+    kernels.reset_launch_counts()
+    stats = run_odometry.run(folder, "associate.txt", "TUM1",
+                             SlamConfig.default_shipped(), adaptive=True,
+                             device="cuda")
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    ts, poses = tum.read_trajectory(stats["trajectory"])
+    ate = tum.ate_rmse([f"{1000.0 + 0.05 * k:.6f}" for k in range(N_FRAMES)],
+                       gt[:N_FRAMES], ts, poses)
+    print(f"run_odometry --adaptive {N_FRAMES} frames on {card}: "
+          f"{stats['mean_frame_ms']:.1f} ms/frame mean (frontend included), "
+          f"{len(ts)} poses, launches {launches}, ATE {ate:.4f} m",
+          flush=True)
+    if len(ts) != N_FRAMES - 1 or not np.isfinite(poses).all():
+        raise AssertionError(f"run_odometry --adaptive wrote {len(ts)} "
+                             f"poses, finite: {np.isfinite(poses).all()}")
+    if launches["moment_flow_step"] < N_FRAMES - 1 or any(
+            n for k, n in launches.items() if k != "moment_flow_step"):
+        raise AssertionError(f"run_odometry --adaptive launches {launches}")
+
+
+def resume(folder, card, n_frames=8, at=4):
+    """Phase 4f: tracking under pallas for n_frames frames, saved after
+    frame `at` (data.checkpoint) and resumed in a fresh tracker: the poses
+    equal the uninterrupted run's bit for bit."""
+    import numpy as np
+    from cvo_slam_tpu_torch.app.run_slam import build_tracker
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
+    from cvo_slam_tpu_torch.data import checkpoint, tum
+    cam = CAMERA_PRESETS["TUM1"]
+    cfg = SlamConfig.default_shipped().replace(OnlyTracking=True)
+    records = tum.load_association(os.path.join(folder, "associate.txt"))
+    frames = [tum.load_image(folder, r) for r in records[:n_frames]]
+    ck = os.path.join(folder, "session.ckpt")
+    with env(CVO_SLAM_BACKEND="pallas"):
+        t = build_tracker(cam, cfg, device="cuda")
+        t.init()
+        want = np.array([t.update(f) for f in frames])
+        t = build_tracker(cam, cfg, device="cuda")
+        t.init()
+        got = [t.update(f) for f in frames[:at]]
+        checkpoint.save_session(t, ck)
+        t = checkpoint.load_session(ck, cam, cfg, device="cuda")
+        got = np.array(got + [t.update(f) for f in frames[at:]])
+    print(f"checkpoint: {n_frames} frames under pallas, saved after frame "
+          f"{at} ({os.path.getsize(ck) / 1e6:.1f} MB) and resumed: poses "
+          f"bitwise equal to the uninterrupted run: "
+          f"{np.array_equal(got, want)}", flush=True)
+    if not np.array_equal(got, want):
+        raise AssertionError("the resumed run's poses differ")
+
+
+def suite(out_dir, card):
+    """Phase 4g: eval.suite.run_suite on SUITE_BARS' sequences, full
+    length, at 640x480 under pallas with the run loop's defaults
+    (speculation on), counters set to 0 just before, read just after:
+    tracking and SLAM ATE under each sequence's bar."""
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.eval import suite as suite_mod
+    with env(CVO_SLAM_BACKEND="pallas", CVO_SLAM_SPECULATE=None):
+        kernels.reset_launch_counts()
+        payload = suite_mod.run_suite(out_dir, sequences=list(SUITE_BARS),
+                                      device="cuda")
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+    print(f"suite (pallas) on {card}: launches {launches}", flush=True)
+    for r in payload["results"]:
+        tr, sl = r["tracking"], r["slam"]
+        kp = {k: round(v["mean"], 1)
+              for k, v in r.get("keyframe_path_ms", {}).items()}
+        print(f"suite {r['sequence']} {r['frames']} frames 640x480: ATE "
+              f"tracking {tr['ate_rmse']:.4f} m, SLAM {sl['ate_rmse']:.4f} m "
+              f"(bar {SUITE_BARS[r['sequence']]}); RPE SLAM "
+              f"{sl['rpe_trans_rmse']:.4f} m, {sl['rpe_rot_rmse_deg']:.3f} "
+              f"deg; {r['loop_closures']} loop closures; {r['fps']:.2f} fps "
+              f"(wall {r['wall_s']:.1f} s); {r.get('keyframes')} keyframe "
+              f"events, ms per event by stage {kp}", flush=True)
+        for label, res in (("tracking", tr), ("SLAM", sl)):
+            if not res["ate_rmse"] < SUITE_BARS[r["sequence"]]:
+                raise AssertionError(f"{r['sequence']}: {label} ATE "
+                                     f"{res['ate_rmse']} m over its bar")
+    if min(launches[k] for k in ("align_fused", "ip_suite", "pair_stats")) \
+            <= 0:
+        raise AssertionError(f"suite launches {launches}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cvo_slam_tpu_torch")):
         return fail("cvo_slam_tpu_torch/ not found beside chip_smoke.py: run "
@@ -1043,6 +1257,7 @@ def main() -> int:
     from cvo_slam_tpu_torch.data import synthetic
 
     # -- phase 1: card and build
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -1072,34 +1287,71 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         # -- phase 2: kernel checks on frames 0 and 1 of the sequence
-        clouds = first_pair_clouds(folder, cam)
-        kernel_checks(clouds, p, report)
-        flow_step_checks(clouds, p, report)
-        align_checks(sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1),
-                     p, report)
+        with phase("2"):
+            clouds = first_pair_clouds(folder, cam)
+            kernel_checks(clouds, p, report)
+            flow_step_checks(clouds, p, report)
+            align_checks(sequence_clouds(folder, cam, CAPS[0],
+                                         ALIGN_PAIRS + 1), p, report)
 
         # -- phase 3: tracking-only SLAM through the CLI's run() on each
-        #    backend; phase 4: the whole system; phase 4c: run_odometry;
-        #    then one frame under the profiler (after, so it cannot slow
-        #    phases 3-4)
-        t_mom = tracking(folder, gt, report, card, "pallas_mom")
-        t_fused = tracking(folder, gt, report, card, "pallas")
-        print(f"ms/frame mean / median: pallas_mom {np.mean(t_mom):.1f} / "
-              f"{np.median(t_mom):.1f}, pallas {np.mean(t_fused):.1f} / "
-              f"{np.median(t_fused):.1f}", flush=True)
-        tracking(folder, gt, report, card, "pallas_iter", ITER_FRAMES)
-        s_mom = slam(os.path.join(folder, "slam"), report, card)
-        s_fused = slam(os.path.join(folder, "slam"), report, card,
-                       backend="pallas")
-        for name, st in (("pallas_mom", s_mom), ("pallas", s_fused)):
+        #    backend; phase 3d: speculation; phase 4: the whole system;
+        #    phase 4c: run_odometry; phases 4d-4g: the async backend,
+        #    run_odometry --adaptive, checkpoint, the suite; then one frame
+        #    under the profiler (after, so it cannot slow the others)
+        with phase("3"):
+            t_mom = tracking(folder, gt, report, card, "pallas_mom")
+        with phase("3b"):
+            fused = tracking(folder, gt, report, card, "pallas")
+        t_fused = fused["t_frame"]
+        print(f"ms/frame mean / median: pallas_mom "
+              f"{np.mean(t_mom['t_frame']):.1f} / "
+              f"{np.median(t_mom['t_frame']):.1f}, pallas "
+              f"{np.mean(t_fused):.1f} / {np.median(t_fused):.1f}",
+              flush=True)
+        with phase("3c"):
+            tracking(folder, gt, report, card, "pallas_iter", ITER_FRAMES)
+        with phase("3d"):
+            spec = tracking(folder, gt, report, card, "pallas",
+                            speculate="1")
+        sp = spec["stats"]["speculation"]
+        print(f"speculation (pallas, CVO_SLAM_SPECULATE=1): hits "
+              f"{sp['hits']}, misses {sp['misses']}, discarded "
+              f"{sp['discards']}; ms/frame mean / median "
+              f"{np.mean(spec['t_frame']):.1f} / "
+              f"{np.median(spec['t_frame']):.1f} (phase 3b without: "
+              f"{np.mean(t_fused):.1f} / {np.median(t_fused):.1f}); "
+              f"trajectory equal to phase 3b's: "
+              f"{spec['lines'] == fused['lines']}", flush=True)
+        if sp["hits"] < 1 or spec["lines"] != fused["lines"]:
+            return fail("speculation: no hit, or poses not bitwise equal "
+                        "to phase 3b's")
+        with phase("4"):
+            s_mom = slam(os.path.join(folder, "slam"), report, card,
+                         check_matcher=True)
+        with phase("4b"):
+            s_fused = slam(os.path.join(folder, "slam"), report, card,
+                           backend="pallas")
+        for name, (st, _) in (("pallas_mom", s_mom), ("pallas", s_fused)):
             print(f"keyframe path ms per event ({name}): "
                   f"{ {k: round(v['mean'], 1) for k, v in st.get('keyframe_path_ms', {}).items()} }, "
                   f"verify per round "
                   f"{round(st['lc_stage_ms']['verify']['mean'], 1) if 'lc_stage_ms' in st else None}",
                   flush=True)
-        odometry(folder, gt, card)
-        for backend in ("pallas_mom", "pallas", "pallas_iter"):
-            profile_frame(clouds, p, backend)
+        with phase("4c"):
+            odometry(folder, gt, card)
+        with phase("4d"):
+            async_backend(os.path.join(folder, "slam"), report, card,
+                          s_fused)
+        with phase("4e"):
+            adaptive_odometry(folder, gt, card)
+        with phase("4f"):
+            resume(folder, card)
+        with phase("4g"):
+            suite(os.path.join(folder, "suite"), card)
+        with phase("5"):
+            for backend in ("pallas_mom", "pallas", "pallas_iter"):
+                profile_frame(clouds, p, backend)
 
     for entry in report.values():
         if entry["launches"] <= 0:
@@ -1111,6 +1363,7 @@ def main() -> int:
         report[name]["passes_in_flow_and_step"] = \
             report["flow_and_step"]["launches"]
     print(json.dumps({"kernels": list(report.values())}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

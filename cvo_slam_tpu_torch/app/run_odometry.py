@@ -1,20 +1,19 @@
 """Standalone frame-to-frame CVO odometry CLI
 (port of cvo_slam_tpu.app.run_odometry).
 
-Re-expression of the reference's standalone main (cvo_main.cpp): loop over
-a TUM-format association file, register consecutive frames with ONE CVO
-instance (identity start, the fixed ell anneal), accumulate the pose chain,
-and write `cvo_poses_qt.txt` lines `name tx ty tz qx qy qz qw`
-(cvo_main.cpp:60-65). The align backend comes from CVO_SLAM_BACKEND
-(engine.default_backend).
-
---adaptive (the adaptive-ell variant, cvo/adaptive.py of the JAX package)
-is not ported yet and raises NotImplementedError.
+Re-expression of the reference's standalone mains (cvo_main.cpp and
+adaptive_cvo_main.cpp): loop over a TUM-format association file, register
+consecutive frames with ONE CVO instance (identity start), accumulate the
+pose chain, and write `cvo_poses_qt.txt` lines `name tx ty tz qx qy qz qw`
+(cvo_main.cpp:60-65). The align backend of the fixed ell anneal comes from
+CVO_SLAM_BACKEND (engine.default_backend); --adaptive selects the
+adaptive-ell variant (cvo.adaptive.adaptive_align, re-expressing
+adaptive_cvo.cpp), whose iterations run the moment kernel.
 
 Usage:
   python -m cvo_slam_tpu_torch.app.run_odometry --folder <seq_dir> \
-      [--association associate.txt] [--camera TUM1] [--max-frames N] \
-      [--device cuda]
+      [--association associate.txt] [--camera TUM1] [--adaptive] \
+      [--max-frames N] [--device cuda]
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import numpy as np
 
 from ..config import CAMERA_PRESETS, CameraConfig, SlamConfig
 from ..cvo import engine
+from ..cvo.adaptive import AdaptiveParams, adaptive_align
 from ..data import tum
 from ..device import resolve_device
 from ..frontend.pointcloud import create_pointcloud
@@ -37,11 +37,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
         adaptive: bool = False, max_frames: int = 0, verbose: bool = False,
         device="cuda"):
     """cam_name: a preset key or a CameraConfig. Returns run statistics
-    (frames, wall_s, fps, mean_frame_ms, trajectory, backend)."""
-    if adaptive:
-        raise NotImplementedError(
-            "--adaptive (cvo/adaptive.py) is not ported yet (ROADMAP queue 1, "
-            "item 11)")
+    (frames, wall_s, fps, mean_frame_ms, trajectory, adaptive, backend)."""
     device = resolve_device(device)
     cam = (cam_name if isinstance(cam_name, CameraConfig)
            else CAMERA_PRESETS[cam_name])
@@ -50,6 +46,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
         records = records[:max_frames]
 
     p = cfg.cvo
+    ap = AdaptiveParams()
     backend = engine.default_backend()
     eye3, zero3 = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
     out_path = os.path.join(folder, "cvo_poses_qt.txt")
@@ -65,8 +62,12 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
                                    cfg.frontend)
             cloud = engine.PointCloud.from_host(pc, device)
             if prev_cloud is not None:
-                res = engine.align(prev_cloud, cloud, eye3, zero3,
-                                   np.float32(p.ell_init), p, backend)
+                if adaptive:
+                    res = adaptive_align(prev_cloud, cloud, eye3, zero3, p,
+                                         ap)
+                else:
+                    res = engine.align(prev_cloud, cloud, eye3, zero3,
+                                       np.float32(p.ell_init), p, backend)
                 accum = accum @ res.transform.cpu().numpy().astype(np.float64)
                 f.write(tum.pose_to_tum_line(img.timestamp, accum) + "\n")
             prev_cloud = cloud
@@ -80,7 +81,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
                 fps=len(records) / wall if wall > 0 else 0.0,
                 mean_frame_ms=float(np.mean(per_frame[1:])) * 1e3
                 if len(per_frame) > 1 else 0.0,
-                trajectory=out_path, backend=backend)
+                trajectory=out_path, adaptive=adaptive, backend=backend)
 
 
 def main(argv=None):
@@ -89,7 +90,7 @@ def main(argv=None):
     ap.add_argument("--association", default="associate.txt")
     ap.add_argument("--camera", default="TUM1", choices=sorted(CAMERA_PRESETS))
     ap.add_argument("--adaptive", action="store_true",
-                    help="adaptive-ell variant (not ported yet: raises)")
+                    help="adaptive-ell variant (adaptive_cvo.cpp)")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--device", default="cuda",

@@ -22,7 +22,9 @@ Re-expression of reference KeyframeGraph
     re-optimized with both endpoint keyframes pinned, in one batched LM
     call.
   * loop-closure detection and the windowed BA are pluggable
-    (`loop_detector`, `windowed_ba`).
+    (`loop_detector`, `windowed_ba`), and so is the vocabulary step of the
+    keyframes' features (`keyframe_bow`, features.orb's hook), which add()
+    runs first for the map's keyframes that lack their BoW vectors.
 
 Keyframe vertex ids are even (id_interval_=2, keyframe_graph.cpp:91-97),
 landmark ids odd; edge ids even — the loop-closure writer filters on these
@@ -68,12 +70,13 @@ class KeyframeGraph:
                  loop_detector: Optional[Callable] = None,
                  windowed_ba: Optional[Callable] = None,
                  log: Optional[Callable[[str], None]] = None,
-                 device="cuda"):
+                 device="cuda", keyframe_bow: Optional[Callable] = None):
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loop_detector = loop_detector
         self.windowed_ba = windowed_ba
+        self.keyframe_bow = keyframe_bow
         self._keyframes: List[Keyframe] = []
         self.edges: List[GraphEdge] = []
         self.lc_num = 0
@@ -110,6 +113,11 @@ class KeyframeGraph:
             stage[key] = stage.get(key, 0.0) \
                 + (time.perf_counter() - t0) * 1e3
             return out
+
+        # the vocabulary step of the map's keyframes (made by the tracker
+        # with their ORB features only), before anything below reads the
+        # vocabulary
+        timed("insert", self._keyframe_bow, m)
 
         # start the post-retrain BoW refresh on a worker thread so it
         # overlaps the local-map optimize below
@@ -153,6 +161,14 @@ class KeyframeGraph:
             self.log("Final bundle adjustment end")
             if self.cfg.RefineFrameLists:
                 timed("refine_frames", self.refine_frame_lists)
+
+    def _keyframe_bow(self, m: LocalMap):
+        if self.keyframe_bow is None:
+            return
+        for kf in (m.keyframe, m.last_keyframe):
+            if kf is not None and kf.bow_vec is None \
+                    and kf.descriptors is not None:
+                self.keyframe_bow(kf)
 
     # -- insertNewKeyframe (keyframe_graph.cpp:1742-1798)
     def _insert_new_keyframe(self, m: LocalMap) -> Keyframe:

@@ -12,12 +12,19 @@ pre/prior/lc-prior inner products and cos_angle >= 0.1 (:703-714). Accepted
 edges go into the global graph with the eigenvalue-floored Hessian as
 information.
 
-Phases, in the reference's per-candidate order: (1) host ORB matching +
-RANSAC with its landmark side effects, candidate by candidate; (2) the
-device verification of every passing candidate (cvo.engine.lc_verify_batch:
-the align, then compute_innerproduct_lc on the pair-stats kernel); (3) host accept tests and edge insertion. Phase 2 depends on
-nothing phase 1 mutates, so the results equal the interleaved reference
-loop. Each round records its stage costs in graph.lc_stage_ms.
+A host/device pipeline, in the reference's per-candidate order: the
+descriptor matching of all candidates is issued to the device up front
+(features.matcher.dispatch_match_bow, where the problem is large enough);
+then per candidate, in BoW-score order, the host runs ORB RANSAC with its
+landmark side effects, and each passing candidate's CVO re-registration
+and scoring (cvo.engine.lc_verify_batch on one candidate: the align, then
+compute_innerproduct_lc on the pair-stats kernel) is handed to a worker
+thread with its own CUDA side stream (device.StreamWorker), so the device
+verifies candidate k while the host runs RANSAC for candidate k+1. The
+results are read in candidate order, and the accept tests and edge
+insertions run on the host in that order. A verification depends on
+nothing later RANSAC mutates, so the results equal the sequential loop's
+bit for bit. Each round records its stage costs in graph.lc_stage_ms.
 
 Reference quirks kept: the pnpransac prior transform is never assigned in
 the active code (uninitialized in C++); the identity is passed. The
@@ -31,11 +38,30 @@ import time
 
 import numpy as np
 
-from ..config import CameraConfig, SlamConfig
+from ..config import CameraConfig, CvoParams, SlamConfig
 from ..cvo import engine
+from ..device import StreamWorker
+from ..features import matcher as matcher_mod
 from ..features.bow import Vocabulary
 from ..features.matcher import Matcher
 from ..tracking.types import Keyframe, TrackingResult
+
+
+def _verify(reference: engine.PointCloud, cand: engine.PointCloud,
+            lc_prior: np.ndarray, prior: np.ndarray, p: CvoParams,
+            backend: str):
+    """One candidate's CVO re-registration from the inverse of its RANSAC
+    prior, then compute_innerproduct_lc: (transform f64, host lc dict,
+    (start, end) of this call on the perf_counter clock)."""
+    t0 = time.perf_counter()
+    inv = np.linalg.inv(lc_prior)
+    (res, lc), = engine.lc_verify_batch(
+        reference, [cand], [inv[:3, :3].astype(np.float32)],
+        [inv[:3, 3].astype(np.float32)], [np.float32(p.ell_init)],
+        [prior.astype(np.float32)], [lc_prior.astype(np.float32)], p,
+        backend)
+    T = res.transform.cpu().numpy().astype(np.float64)
+    return T, engine.to_host(lc), (t0, time.perf_counter())
 
 
 def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
@@ -49,6 +75,7 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
     backend = engine.default_backend()
     verify_backend = "pallas" if backend == "pallas_iter" else backend
     refresh_thread = [None]
+    verifier = []   # the StreamWorker, made on the first round's device
 
     def _refresh_stale(keyframes):
         """Re-transform BoW vectors built under an older vocabulary (the
@@ -90,7 +117,10 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
 
         # stage costs in ms (refresh = BoW re-transform join; score = BoW
         # scoring; ransac = host ORB matching + RANSAC + landmark
-        # bookkeeping; verify = the CVO re-registrations on the device)
+        # bookkeeping, with the verifications issued as it goes; verify =
+        # the wait for the verifications after it; overlap = the part of
+        # the verifications' own time that ran during the ransac stage),
+        # and the descriptor matchings run on the device and on the host
         sub = getattr(graph, "lc_stage_ms", None)
         if sub is None:
             sub = graph.lc_stage_ms = []
@@ -117,44 +147,51 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
         t2 = time.perf_counter()
         row["score"] = (t2 - t1) * 1e3
 
-        # phase 1 (host): ORB matching + RANSAC prior per candidate in
-        # BoW-score order (landmark / covisibility side effects are
-        # sequential in the reference, keyframe_graph.cpp:628-684)
+        # phase 1 (host, overlapped with the device): ORB matching +
+        # RANSAC prior per candidate in BoW-score order (landmark /
+        # covisibility side effects are sequential in the reference,
+        # keyframe_graph.cpp:628-684); each passing candidate's
+        # verification is issued at once, so the device verifies candidate
+        # k while the host runs RANSAC for candidate k+1
+        device = reference.cloud.device
+        if not verifier:
+            verifier.append(StreamWorker(device, "lc-verify"))
+        top = [keyframes[i] for _, i in scored[:10]]
+        match_futs = [matcher_mod.dispatch_match_bow(reference, cand, device)
+                      for cand in top]
+        row["n_match_device"] = sum(f is not None for f in match_futs)
+        row["n_match_host"] = len(top) - row["n_match_device"]
         cands = []
-        for s, i in scored[:10]:
-            cand = keyframes[i]
+        for (s, _), cand, mfut in zip(scored, top, match_futs):
             graph.log(f"Checking keyframe {cand.id} with BoW score {s:.4f}")
+            pairs = None if mfut is None else matcher_mod.fetch_match_bow(
+                mfut, reference, cand, cfg.LC_MatchThreshold)
             ok, matches, T_cr = matcher.get_initial_transformation(
-                reference, cand, graph.map_points, graph.next_mappoint_id)
+                reference, cand, graph.map_points, graph.next_mappoint_id,
+                pairs=pairs)
             if not ok:
                 continue
             prior = np.linalg.inv(reference.pose) @ cand.pose
-            cands.append((cand, float(s), matches,
-                          np.asarray(T_cr, np.float64), prior))
+            lc_prior = np.asarray(T_cr, np.float64)
+            fut = verifier[0].submit(_verify, reference.cloud, cand.cloud,
+                                     lc_prior, prior, cfg.cvo,
+                                     verify_backend)
+            cands.append((cand, float(s), matches, lc_prior, prior, fut))
         t3 = time.perf_counter()
         row["ransac"] = (t3 - t2) * 1e3
 
-        # phase 2 (device): each candidate re-registered from its prior,
-        # then scored (compute_innerproduct_lc)
-        inv = [np.linalg.inv(c[3]) for c in cands]
-        p = cfg.cvo
-        out = engine.lc_verify_batch(
-            reference.cloud, [c[0].cloud for c in cands],
-            [m[:3, :3].astype(np.float32) for m in inv],
-            [m[:3, 3].astype(np.float32) for m in inv],
-            [np.float32(p.ell_init)] * len(cands),
-            [c[4].astype(np.float32) for c in cands],
-            [c[3].astype(np.float32) for c in cands], p, verify_backend)
-        verified = [(np.asarray(res.transform.cpu().numpy(), np.float64),
-                     engine.to_host(lc)) for res, lc in out]
+        # phase 2 (device): the verifications, read in candidate order
+        verified = [c[5].result() for c in cands]
         row["verify"] = (time.perf_counter() - t3) * 1e3
+        row["overlap"] = sum(max(0.0, min(end, t3) - start)
+                             for _, _, (start, end) in verified) * 1e3
         row["n_cands"] = len(cands)
 
         # phase 3 (host): accept tests + edge insertion in candidate order
         # (keyframe_graph.cpp:703-746)
         new_lc = 0
-        for (cand, s, matches, lc_prior, prior), (T, lc) in zip(cands,
-                                                                verified):
+        for (cand, s, matches, lc_prior, prior, _), (T, lc, _) in zip(
+                cands, verified):
             result = TrackingResult()
             result.score = s
             result.matches = matches

@@ -44,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -57,12 +58,21 @@ KEEP_WORD = 32   # columns per word of the keep bitmask
 NG = 169         # entries of the Hessian moment matrix G (13 x 13)
 
 
+_count_lock = threading.Lock()
+
+
 @dataclass
 class KernelInfo:
     name: str
     source: str      # file under csrc/
     replaces: str    # the Pallas kernel's pallas_call, file:line
     launches: int = 0
+
+    def count_launch(self):
+        # wrappers run on the tracker's thread and on the pipelines'
+        # worker threads (device.StreamWorker, the async backend)
+        with _count_lock:
+            self.launches += 1
 
 
 MOMENT = KernelInfo("moment_flow_step", "moment_flow_step.cu",
@@ -419,7 +429,7 @@ def moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, p: CvoParams,
              _inv2cl2(p), _s2cs2(p), p.sp_thres, _ptr(keep_bits),
              _ptr(npart), _ptr(mom), _ptr(nnz), _stream(dev))
     _raise_on(err, MOMENT.name)
-    MOMENT.launches += 1
+    MOMENT.count_launch()
     if launch_info is not None:
         launch_info.update(grid=plan.items, blocks_per_sm=per_sm, sms=sms,
                            chunks=plan.chunks,
@@ -539,7 +549,7 @@ def ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p: CvoParams,
              _ptr(fpart), _ptr(npart), _ptr(gpart), _ptr(gnpart),
              _ptr(out_f), _ptr(out_n), _stream(dev))
     _raise_on(err, IP_SUITE.name)
-    IP_SUITE.launches += 1
+    IP_SUITE.count_launch()
     if launch_info is not None:
         launch_info.update(grid=sum(q.items for q in plans),
                            blocks_per_sm=per_sm, sms=sms,
@@ -609,7 +619,7 @@ def pair_stats_cuda(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
              2.0 * p.c_ell * p.c_ell, _ptr(fpart), _ptr(npart), _ptr(gpart),
              _ptr(gnpart), _ptr(out_f), _ptr(out_n), _stream(dev))
     _raise_on(err, PAIR_STATS.name)
-    PAIR_STATS.launches += 1
+    PAIR_STATS.count_launch()
     if launch_info is not None:
         launch_info.update(grid=plan.items, blocks_per_sm=per_sm, sms=sms,
                            chunks=plan.chunks,
@@ -705,7 +715,7 @@ def _flow_step_cuda(mode, x, y, fx, fy, mx, my, ell, p: CvoParams, wv=None,
 def flow_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams):
     """The CUDA flow pass: same function and tuple as flow_plain."""
     out_f, out_n = _flow_step_cuda(_FLOW_ONLY, x, y, fx, fy, mx, my, ell, p)
-    FLOW.launches += 1
+    FLOW.count_launch()
     return out_f[0:3], out_f[3:6], out_n[0]
 
 
@@ -714,7 +724,7 @@ def step_coeffs_cuda(x, y, fx, fy, mx, my, omega, v, ell, p: CvoParams):
     wv = torch.cat([omega.reshape(3), v.reshape(3)]).to(
         device=x.device, dtype=torch.float32).contiguous()
     out_f, _ = _flow_step_cuda(_STEP_ONLY, x, y, fx, fy, mx, my, ell, p, wv)
-    STEP.launches += 1
+    STEP.count_launch()
     return out_f[6], out_f[7], out_f[8], out_f[9]
 
 
@@ -727,7 +737,7 @@ def flow_and_step_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams,
     out_f, out_n = _flow_step_cuda(_BOTH, x, y, fx, fy, mx, my, ell, p,
                                    keep_bits=keep_bits,
                                    launch_info=launch_info)
-    FLOW_AND_STEP.launches += 1
+    FLOW_AND_STEP.count_launch()
     return (out_f[0:3], out_f[3:6], out_n[0], out_f[6], out_f[7], out_f[8],
             out_f[9])
 
@@ -812,7 +822,7 @@ def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
              _ptr(bits), _ptr(fpart), _ptr(npart), _ptr(spart), _ptr(out_f),
              _ptr(out_n), info, _stream(dev))
     _raise_on(err, ALIGN.name)
-    ALIGN.launches += 1
+    ALIGN.count_launch()
     if launch_info is not None:
         launch_info.update(grid=info[0], blocks_per_sm=info[1], sms=info[2],
                            items=info[3], chunks=plan.chunks,

@@ -24,16 +24,19 @@ Re-expression of the active code of reference ORBmatcher
 Deviation: RANSAC sampling uses a seeded generator (the reference draws from
 std::random_device — nondeterministic run-to-run); deterministic here.
 
-Descriptor matching runs on the host (`match_bow`): the JAX package's
-device best-two reduction gives byte-identical pairs and is not ported yet.
+Descriptor matching: `match_bow` on the host, and for large problems on
+a CUDA device `dispatch_match_bow` / `fetch_match_bow`, which compute the
+same best-two reduction in torch with byte-identical pairs.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..config import CameraConfig, SlamConfig
 from ..tracking.types import Keyframe
@@ -156,6 +159,102 @@ def match_bow(ref: Keyframe, cur: Keyframe, nn_ratio: float,
             idx[s:e], best[s:e], second[s:e] = ix, b1, b2
         _gate_node(ref, cur, i1, i2, idx, best, second, nn_ratio,
                    pairs_list, rots_list)
+    return _assemble_pairs(pairs_list, rots_list, check_orientation)
+
+
+# ---------------------------------------------------------------------------
+# device-side descriptor matching (the loop-closure host-phase hot spot)
+# ---------------------------------------------------------------------------
+# With the default online-grown vocabulary the FeatureVector bucket level
+# degenerates to the root, so match_bow brute-forces a ~5000x5000 Hamming
+# matrix per candidate on the host. The distance matrix and the per-row
+# best-two reduction move to the device; all accept logic (ratio + TH_LOW
+# gates, rotation histogram) stays on the host, byte-identical.
+
+DEV_MIN_PAIRS = 262144    # below this the device round trip wins nothing
+_BIG = 1 << 30            # distance of a pair in two different buckets
+
+
+def _words(desc: np.ndarray, device) -> torch.Tensor:
+    """(n, 32) uint8 descriptors -> (n, 8) int64 tensor of their uint32
+    words. The words are nonnegative in int64, so >> shifts in zeros."""
+    w = np.ascontiguousarray(desc, np.uint8).view(np.uint32)
+    return torch.from_numpy(w.astype(np.int64)).to(device)
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR bit count of int64 tensors holding uint32 values (torch has no
+    popcount op), in place."""
+    t = x >> 1
+    x -= t.bitwise_and_(0x55555555)
+    t = x >> 2
+    x.bitwise_and_(0x33333333).add_(t.bitwise_and_(0x33333333))
+    x.add_(x >> 4).bitwise_and_(0x0F0F0F0F)
+    return x.mul_(0x01010101).bitwise_and_(0xFFFFFFFF).bitwise_right_shift_(24)
+
+
+def best_two_device(d1w, d2w, n1id, n2id):
+    """Per row of d1w: (first-minimum index, best, second best) Hamming
+    distance to the rows of d2w, over pairs of the same node id; a pair of
+    two nodes is at _BIG. The distance matrix is one (n1, n2) int32 sum of
+    the 8 words' bit counts."""
+    D = torch.zeros((d1w.shape[0], d2w.shape[0]), dtype=torch.int32,
+                    device=d1w.device)
+    for w in range(d1w.shape[1]):
+        D += _popcount32(d1w[:, w, None] ^ d2w[None, :, w]).to(torch.int32)
+    D = torch.where(n1id[:, None] == n2id[None, :], D,
+                    torch.full_like(D, _BIG))
+    idx = torch.argmin(D, dim=1)          # the first minimum, as the host
+    best = D.gather(1, idx[:, None])[:, 0]
+    second = D.scatter(1, idx[:, None], _BIG).min(dim=1).values
+    return idx, best, second
+
+
+def dispatch_match_bow(ref: Keyframe, cur: Keyframe, device,
+                       force: bool = False):
+    """Issue the bucketed best-two reduction on `device`; returns an opaque
+    future for fetch_match_bow, or None when the host match_bow should run:
+    CVO_SLAM_DEV_MATCH=0, a CPU device, no common buckets, or fewer than
+    DEV_MIN_PAIRS descriptor pairs. Buckets are encoded as node ids, so any
+    FeatureVector structure maps to one masked (n1, n2) matrix, with the
+    matches of the per-node host loop. force=True skips the device and
+    size gates (parity tests run it on the CPU)."""
+    device = torch.device(device)
+    if not force and (os.environ.get("CVO_SLAM_DEV_MATCH", "1") == "0"
+                      or device.type == "cpu"):
+        return None
+    if not ref.feat_vec or not cur.feat_vec or ref.descriptors is None \
+            or cur.descriptors is None or len(cur.descriptors) == 0:
+        return None
+    common = sorted(set(ref.feat_vec) & set(cur.feat_vec))
+    if not common:
+        return None
+    i1 = [np.asarray(ref.feat_vec[node], np.int64) for node in common]
+    i2 = [np.asarray(cur.feat_vec[node], np.int64) for node in common]
+    if not force and sum(len(a) * len(b) for a, b in zip(i1, i2)) \
+            < DEV_MIN_PAIRS:
+        return None
+    n1 = np.concatenate([np.full(len(a), nd) for nd, a in enumerate(i1)])
+    n2 = np.concatenate([np.full(len(b), nd) for nd, b in enumerate(i2)])
+    i1, i2 = np.concatenate(i1), np.concatenate(i2)   # node order
+    out = best_two_device(_words(ref.descriptors[i1], device),
+                          _words(cur.descriptors[i2], device),
+                          torch.from_numpy(n1).to(device),
+                          torch.from_numpy(n2).to(device))
+    return i1, i2, out
+
+
+def fetch_match_bow(fut, ref: Keyframe, cur: Keyframe, nn_ratio: float,
+                    check_orientation: bool = True):
+    """Complete dispatch_match_bow: copy (idx, best, second) to the host
+    and apply the same gates and histogram as match_bow. A bucket with one
+    candidate descriptor has second = _BIG, which gates as the host's
+    second = 256 (the ratio bound 0.7 * 256 > TH_LOW never binds)."""
+    i1, i2, out = fut
+    idx, best, second = (t.cpu().numpy().astype(np.int64) for t in out)
+    pairs_list, rots_list = [], []
+    _gate_node(ref, cur, i1, i2, idx, best, second, nn_ratio,
+               pairs_list, rots_list)
     return _assemble_pairs(pairs_list, rots_list, check_orientation)
 
 

@@ -487,9 +487,14 @@ def make_extractor(cam: CameraConfig):
 
 
 class KeyframeFeatureHook:
-    """Hook attached to LocalTracker keyframe creation: ORB extraction + BoW
-    (local_tracker.cpp:292-300). Exposed as an object so the vocabulary can
-    be checkpointed/restored alongside the session."""
+    """Hook attached to LocalTracker keyframe creation: ORB extraction
+    (local_tracker.cpp:292-300). The vocabulary step (`bow`) is run by the
+    backend graph when the keyframe's map reaches it (KeyframeGraph's
+    `keyframe_bow`): between the same two backend events as at creation, so
+    the vocabulary sees the same sequence of documents, and only the
+    backend's thread touches it (the async backend runs beside the
+    tracker). Exposed as an object so the vocabulary can be
+    checkpointed/restored alongside the session."""
 
     def __init__(self, cam: CameraConfig, cfg: SlamConfig, vocabulary=None,
                  vocabulary_path: str = ""):
@@ -512,14 +517,18 @@ class KeyframeFeatureHook:
         kf.keypoints = kp
         kf.kp_angle = ang
         kf.descriptors = desc
-        # online vocabularies grow with every keyframe (no-op for a loaded
-        # DBoW2 vocabulary, which has no add_document)
+        self.last_ms = (time.perf_counter() - t0) * 1e3
+
+    def bow(self, kf):
+        """Add the keyframe's descriptors to an online vocabulary (no-op for
+        a loaded DBoW2 vocabulary, which has no add_document) and set its
+        BoW and feature vectors."""
         add = getattr(self.voc, "add_document", None)
         if add is not None:
-            add(desc)
-        kf.bow_vec, kf.feat_vec = self.voc.transform(desc, levelsup=4)
+            add(kf.descriptors)
+        kf.bow_vec, kf.feat_vec = self.voc.transform(kf.descriptors,
+                                                     levelsup=4)
         kf.bow_version = getattr(self.voc, "version", 0)
-        self.last_ms = (time.perf_counter() - t0) * 1e3
 
 
 def keyframe_feature_hook(cam: CameraConfig, cfg: SlamConfig,

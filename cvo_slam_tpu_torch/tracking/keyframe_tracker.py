@@ -85,12 +85,18 @@ class KeyframeTracker:
                                        else np.asarray(initial_transformation,
                                                        np.float64))
 
-    def update(self, current: ImagePair) -> np.ndarray:
-        """Process one frame; returns the (tracking) absolute pose."""
-        from .local_tracker import drive
-        return drive(self.update_steps(current), self.lt.executor)
+    def update(self, current: ImagePair, next_frame: ImagePair = None
+               ) -> np.ndarray:
+        """Process one frame; returns the (tracking) absolute pose.
 
-    def update_steps(self, current: ImagePair):
+        next_frame (optional): the upcoming frame, staged so the speculative
+        executor can dispatch its device work before this frame's readback
+        (tracking.local_tracker.SpeculativeExecutor)."""
+        from .local_tracker import drive
+        return drive(self.update_steps(current, next_frame),
+                     self.lt.executor)
+
+    def update_steps(self, current: ImagePair, next_frame: ImagePair = None):
         """Generator form of update (device-dispatch request protocol, see
         tracking.local_tracker): yields frame/align/ip requests."""
         if self.previous is None:
@@ -100,7 +106,7 @@ class KeyframeTracker:
             yield from self.lt.init_new_local_map_steps(
                 self.previous, current, self.initial_transformation)
             return self.lt.get_current_pose()
-        return (yield from self.lt.update_steps(current))
+        return (yield from self.lt.update_steps(current, next_frame))
 
     def force_keyframe(self):
         self.lt.force_complete_current_local_map()

@@ -349,7 +349,7 @@ def test_run_odometry_matches_jax(tmp_path, monkeypatch):
     transforms of four alignments; the per-pair and the moment-form align
     differ by up to 1.8e-4 m per alignment, PALLAS_BARS; measured 2.3e-4
     on the fourth pose); the port under its pallas backend, the JAX
-    package under xla."""
+    package under xla; then both packages' --adaptive variant."""
     from cvo_slam_tpu.app import run_odometry as jodo
     from cvo_slam_tpu.config import (CameraConfig, FrontendParams,
                                      SlamConfig)
@@ -377,9 +377,22 @@ def test_run_odometry_matches_jax(tmp_path, monkeypatch):
         assert len(g) == len(w) == 8 and g[0] == w[0]
         _close(np.array(g[1:], float), np.array(w[1:], float), 0, 5e-4,
                g[0])
-    with pytest.raises(NotImplementedError):
-        todo.run(folder, "associate.txt", from_reference(cam),
-                 from_reference(cfg), adaptive=True, device="cpu")
+    # --adaptive (ported since): the same lines from the adaptive-ell
+    # variant of both packages, poses within the same 5e-4 (measured on the
+    # CPU: 2.6e-4 on the first pose)
+    want_stats = jodo.run(folder, "associate.txt", cam, cfg, adaptive=True)
+    with open(want_stats["trajectory"]) as f:
+        want = [line.split() for line in f]
+    stats = todo.run(folder, "associate.txt", from_reference(cam),
+                     from_reference(cfg), adaptive=True, device="cpu")
+    assert stats["adaptive"] and want_stats["adaptive"]
+    with open(stats["trajectory"]) as f:
+        got = [line.split() for line in f]
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == 8 and g[0] == w[0]
+        _close(np.array(g[1:], float), np.array(w[1:], float), 0, 5e-4,
+               g[0])
 
 
 # -- 6. the backend switch ---------------------------------------------------
@@ -407,13 +420,24 @@ def test_default_backend_reads_environment(monkeypatch):
 
 def test_lc_verify_routes_pallas_iter_to_align_fused(monkeypatch):
     """Loop-closure verification under pallas_iter aligns through
-    align_fused (the JAX package's _vmap_backend routing)."""
+    align_fused (the JAX package's _vmap_backend routing), for every
+    candidate that passes RANSAC."""
     from cvo_slam_tpu_torch.backend import loop_closure
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
     seen = []
-    monkeypatch.setattr(tengine, "lc_verify_batch",
-                        lambda *a: seen.append(a[-1]) or [])
-    monkeypatch.setattr(loop_closure, "Matcher", _NoMatch)
+
+    def verify(*a):
+        seen.append(a[-1])
+        res = tengine.AlignResult(*([torch.eye(3)] * 2), torch.eye(4),
+                                  *([torch.zeros(())] * 3))
+        lc = {k: torch.zeros(()) for k in (
+            "inn_prior", "inn_lc_prior", "inn_lc_pre", "inn_lc_post",
+            "inn_fixed", "inn_moving", "cos_angle", "inliers_svd",
+            "inliers_pnpransac")}
+        return [(res, dict(lc, post_hessian=torch.eye(6)))]
+
+    monkeypatch.setattr(tengine, "lc_verify_batch", verify)
+    monkeypatch.setattr(loop_closure, "Matcher", _OneMatch)
     for env, want in (("pallas_iter", "pallas"), ("pallas", "pallas"),
                       ("pallas_mom", "pallas_mom")):
         monkeypatch.setenv("CVO_SLAM_BACKEND", env)
@@ -422,12 +446,12 @@ def test_lc_verify_routes_pallas_iter_to_align_fused(monkeypatch):
         seen.clear()
         ref = _dummy_keyframe(3)
         graph = _DummyGraph([_dummy_keyframe(i) for i in range(3)] + [ref])
-        detect(graph, ref)
-        assert seen == [want], (env, seen)
+        assert detect(graph, ref) == (0, 3)     # every candidate rejected
+        assert seen == [want, want], (env, seen)
 
 
-class _NoMatch:
-    """A matcher whose RANSAC finds no candidate."""
+class _OneMatch:
+    """A matcher whose RANSAC passes every candidate with the identity."""
 
     def __init__(self, *a, **k):
         pass
@@ -435,8 +459,8 @@ class _NoMatch:
     def reset_round(self):
         pass
 
-    def get_initial_transformation(self, *a):
-        return False, None, None
+    def get_initial_transformation(self, *a, **k):
+        return True, 12, np.eye(4)
 
     def best_covisible(self, kf):
         pass
@@ -458,6 +482,8 @@ def _dummy_keyframe(i):
     from cvo_slam_tpu_torch.tracking.types import Keyframe
     kf = Keyframe(id=i, timestamp=str(i), pose=np.eye(4))
     kf.bow_vec = {0: 1.0}
+    kf.cloud = tengine.PointCloud(torch.zeros((8, 3)), torch.zeros((8, 5)),
+                                  torch.zeros(8, dtype=torch.bool))
     return kf
 
 

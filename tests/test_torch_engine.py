@@ -151,11 +151,13 @@ def test_default_device_is_cuda():
 
 def test_backend_is_slice_two():
     """Slice 2 ported the backend: the shipped configuration builds the
-    tracker with its keyframe graph, loop detector and windowed BA; what
-    slice 3 ports (the async backend) still raises, naming it."""
+    tracker with its keyframe graph, loop detector and windowed BA; with
+    UseMultiThreading (ported since) the graph runs behind the async
+    backend."""
     from cvo_slam_tpu_torch.app import run_slam
     from cvo_slam_tpu_torch.backend.keyframe_graph import KeyframeGraph
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
+    from cvo_slam_tpu_torch.parallel.async_backend import AsyncKeyframeGraph
     cfg = SlamConfig.default_shipped()
     tracker = run_slam.build_tracker(CAMERA_PRESETS["TUM1"], cfg,
                                      device="cpu")
@@ -163,7 +165,9 @@ def test_backend_is_slice_two():
     assert tracker.graph.loop_detector is not None
     assert tracker.graph.windowed_ba is not None
     assert tracker.lt.keyframe_feature_hook is not None
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        run_slam.build_tracker(CAMERA_PRESETS["TUM1"],
-                               cfg.replace(UseMultiThreading=True),
-                               device="cpu")
+    tracker = run_slam.build_tracker(CAMERA_PRESETS["TUM1"],
+                                     cfg.replace(UseMultiThreading=True),
+                                     device="cpu")
+    assert isinstance(tracker.graph, AsyncKeyframeGraph)
+    assert isinstance(tracker.graph._graph, KeyframeGraph)
+    tracker.graph.close()

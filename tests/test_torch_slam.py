@@ -154,13 +154,12 @@ def test_run_slam_backend_stats(runs):
 
 @pytest.mark.parametrize("option", ["mesh", "multithreading"])
 def test_run_slam_unported_options_raise(option):
-    """The async backend and the sharded solvers are not ported: asking for
-    them raises instead of running something else."""
+    """The sharded solvers are not ported: asking for them raises instead
+    of running something else, alone and with the async backend
+    (UseMultiThreading, ported since)."""
     from cvo_slam_tpu_torch.app import run_slam as trun
     cam, cfg = from_reference(CAM), from_reference(CFG)
-    with pytest.raises(NotImplementedError):
-        if option == "mesh":
-            trun.build_tracker(cam, cfg, device="cpu", mesh_devices=2)
-        else:
-            trun.build_tracker(cam, cfg.replace(UseMultiThreading=True),
-                               device="cpu")
+    if option == "multithreading":
+        cfg = cfg.replace(UseMultiThreading=True)
+    with pytest.raises(NotImplementedError, match="--mesh"):
+        trun.build_tracker(cam, cfg, device="cpu", mesh_devices=2)
