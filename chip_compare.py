@@ -3,7 +3,7 @@
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_compare.py e2e ROOT
-    python3 chip_compare.py kernels ROOT
+    python3 chip_compare.py kernels ROOT [ROOT2]
     python3 chip_compare.py speculation ROOT
 
 e2e: chip_smoke.py's end-to-end phases on the package under ROOT: tracking
@@ -34,7 +34,13 @@ kernels.flow_and_step_cuda swapped for their plain versions inside this
 process (the stop rule and the sparsification gate turn last-bit
 differences of the sums into different iteration counts); last,
 chip_smoke's phase 3 (tracking under pallas_mom) with its iterations per
-alignment. Run several in one call to compare them.
+alignment. Run several in one call to compare them. With two roots (the
+parent and the change), each runs in a process of its own, in turn, and
+a last line sets their one-lane align_fused and suite side by side:
+whether each tree's outputs on chip_smoke's frame pairs 0 -> 1 .. 5 -> 6
+(align_fused from the identity at ell 0.15) and on frames 0 -> 1 (the
+suite, both ells) are bitwise equal to the other's, and each tree's
+device us per align_fused iteration (frames 0 -> 1) and suite device ms.
 
 speculation: chip_smoke's tracking phase (16 frames; pallas_iter 8) on
 each backend with CVO_SLAM_SPECULATE=0, 1, 1, 0 in turns: ms/frame and the
@@ -201,7 +207,55 @@ def _summary(rows):
             f"(min/median/max)")
 
 
-def kernels_mode(root: str) -> int:
+def solo_outputs(cs, clouds, p, ell_suite, yt):
+    """The one-lane align_fused outputs on chip_smoke's frame pairs and the
+    suite's on frames 0 -> 1 at each of chip_smoke's ells, as host arrays
+    by name."""
+    from cvo_slam_tpu_torch.cvo import kernels
+    out = {}
+    for k in range(len(clouds) - 1):
+        for i, t in enumerate(kernels.align_fused_cuda(
+                *cs.align_args(clouds, k, p))):
+            out[f"align {k}->{k + 1} {i}"] = t.cpu().numpy()
+    (x, fx, mx), (y, fy, my) = clouds[:2]
+    for ell in ell_suite:
+        for i, t in enumerate(kernels.ip_suite_cuda(x, fx, mx, y, fy, my, yt,
+                                                    ell, p)):
+            out[f"suite {ell} {i}"] = t.cpu().numpy()
+    return out
+
+
+def side_by_side(roots) -> int:
+    """kernels_mode of each root in a process of its own, then the S = 1
+    align_fused and suite of the roots side by side."""
+    import subprocess
+    import numpy as np
+    tmp = tempfile.mkdtemp(prefix="chip_compare_")
+    try:
+        dumps = []
+        for k, root in enumerate(roots):
+            dump = os.path.join(tmp, f"{k}.npz")
+            rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                                  "kernels", root, "--dump", dump])
+            if rc:
+                return rc
+            dumps.append(np.load(dump))
+        a, b = dumps
+        outs = sorted(k for k in a.files if not k.startswith("time "))
+        differ = [k for k in outs if not np.array_equal(a[k], b[k])]
+        times = {root: {k[5:]: float(d[k]) for k in d.files
+                        if k.startswith("time ")}
+                 for root, d in zip(roots, dumps)}
+        print(f"one-lane align_fused and suite, {roots[0]} against "
+              f"{roots[1]}: {len(outs) - len(differ)} of {len(outs)} outputs "
+              f"bitwise equal{'' if not differ else f' (differ: {differ})'}; "
+              f"device times {times}", flush=True)
+        return 0 if not differ else 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def kernels_mode(root: str, dump: str = "") -> int:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     cs = _chip_smoke()
@@ -290,6 +344,15 @@ def kernels_mode(root: str) -> int:
                               cs.DEVICE_NAMES["align_fused"], reps=5)
         per_iter = "no window held every launch" if t is None else \
             f"{t:.4f} ms, {t / (iters + 1):.4f} ms per iteration"
+        if dump:
+            import numpy as np
+            out = solo_outputs(cs, clouds, p, cs.ELLS, yt)
+            out["time align_fused us per iteration"] = \
+                np.nan if t is None else t / (iters + 1) * 1e3
+            suite_ms = ms[f"suite {cs.ELLS[0]}"][0]
+            out["time suite device ms"] = \
+                np.nan if suite_ms is None else suite_ms
+            np.savez(dump, **out)
         gaps = whole_run_gaps(cs, clouds, p)
         card = cs.card_line()
         print(f"kernels of {root} on {card}: registers {regs}; (device ms, "
@@ -320,6 +383,10 @@ def main() -> int:
         return e2e(sys.argv[2])
     if sys.argv[1:2] == ["kernels"] and len(sys.argv) == 3:
         return kernels_mode(sys.argv[2])
+    if sys.argv[1:2] == ["kernels"] and len(sys.argv) == 4:
+        return side_by_side(sys.argv[2:4])
+    if sys.argv[1:2] == ["kernels"] and sys.argv[3:4] == ["--dump"]:
+        return kernels_mode(sys.argv[2], sys.argv[4])
     if sys.argv[1:2] == ["speculation"] and len(sys.argv) == 3:
         return speculation_mode(sys.argv[2])
     print(__doc__, file=sys.stderr)

@@ -44,6 +44,18 @@ Phases; any failure exits non-zero:
      blocks or the work items, whichever is fewer; then on frames 1 -> 2 ..
      5 -> 6 the iteration count within ALIGN_PAIRS_ITERS_SPREAD and the
      transform within ALIGN_PAIRS_GAP.
+     The lanes (kernels.align_fused_lanes, ip_suite_lanes): align_fused
+     on frames 0 -> 1 .. 5 -> 6 as 6 lanes of one launch (distinct fixed
+     clouds), each lane equal to its solo launch bit for bit and within
+     the pairs' bars of its plain run; then S = LANE_COUNTS lanes against
+     the shared frame-0 cloud (the moving clouds frames 1.., the last
+     lane started at its own solution), each lane equal to its solo
+     launch bit for bit (S = 1: the solo wrapper); the suite on frames
+     l -> l + 1 as 1 and 4 lanes (yt under TWIST, ells alternating), each
+     lane equal to its solo launch bit for bit, counts equal to the plain
+     lanes' and sums and G at the suite's bars. Each lane call is one
+     kernel launch in the profiler; its device ms is printed beside the
+     S solo launches';
      flow and step_coeffs lie on no path (only the JAX package's tests
      call them): their launches are those of these checks, and each
      flow_and_step launch of the main path runs both passes once more;
@@ -74,6 +86,18 @@ Phases; any failure exits non-zero:
      the keyframe-path stages beside phase 4's;
   4c. app.run_odometry on the 16-frame sequence under pallas: 15 finite
      poses, align_fused launched 15 times; ms/frame;
+  3e. (run after 3d) lockstep tracking (parallel.multi_sequence): the
+     phase-3 sequence and three more (seeds 8-10, their own step
+     twists), 16 frames each at 640x480 / CAP 3072, the shipped
+     configuration with OnlyTracking, under pallas: each sequence's
+     poses equal bit for bit to its solo run with CVO_SLAM_SPECULATE=0;
+     align_fused_lanes and ip_suite_lanes launched once per round of each
+     request kind, align_fused and ip_suite never; ms per frame round and
+     per sequence-frame beside the solo runs' ms/frame. Then the first two
+     sequences, 8 frames, under pallas_mom (equal to solo; the moment
+     kernel lane by lane, the suite as lanes) and through the whole
+     pipeline (OnlyTracking False, Max_KF_interval=3, the last frame a
+     forced keyframe): keyframe counts and poses equal to solo;
   3d. (run after 3c) the tracking of phase 3b with CVO_SLAM_SPECULATE=1:
      the trajectory equal to phase 3b's line for line (bitwise), at least
      one speculation consumed, align_fused and the suite once per
@@ -105,8 +129,9 @@ Phases; any failure exits non-zero:
   6. a JSON line with every kernel's numbers, the run's seconds, the card
      line, and last {"ok": true, "device": {...}}.
 Each phase prints its wall time. No earlier phase is cut in depth: the
-whole run took 322 s of the 1200 s limit on an NVIDIA H100 80GB HBM3 at
-700.00 W (its largest part is phase 4g's generation of 220 frames).
+whole run took 482-549 s of the 1200 s limit on an NVIDIA H100 80GB HBM3
+at 700.00 W (its largest parts are phase 4g's generation of 220 frames
+and phase 3e's lockstep runs, ~85 s).
 
 The bound of a kernel is the larger of issued fp32 instructions / 33.5 T
 instructions/s (132 SMs x 128 lanes x 1.98 GHz on an H100 SXM at 700 W)
@@ -166,6 +191,18 @@ ALIGN_ITERS_SPREAD = 5
 ALIGN_PAIRS = 6
 ALIGN_PAIRS_GAP = 1.1e-3
 ALIGN_PAIRS_ITERS_SPREAD = 15
+# the lanes of align_fused on the shared frame-0 cloud (phase 2)
+LANE_COUNTS = (1, 2, 4, 10)
+# phase 3e: lockstep tracking of LOCKSTEP_SEQS sequences (the phase-3
+# sequence, seed 7, and three more: seeds 8-10, each with its own multiple
+# of the default step twist), N_FRAMES frames each under pallas; the
+# pallas_mom and whole-pipeline runs take the first two for
+# LOCKSTEP_SHORT frames
+LOCKSTEP_SEQS = 4
+LOCKSTEP_SHORT = 8
+LOCKSTEP_STEPS = (None, (-0.003, 0.005, -0.002, -0.008, 0.009, -0.006),
+                  (0.002, 0.003, -0.004, 0.006, 0.004, 0.010),
+                  (0.005, -0.004, -0.003, 0.008, 0.007, -0.005))
 # kernels on no path of the JAX package (only its tests call them): their
 # launches are those of the phase-2 checks
 CHECK_ONLY = ("flow", "step_coeffs")
@@ -181,6 +218,8 @@ DEVICE_NAMES = {
     "flow": ("flow_pass",),
     "step_coeffs": ("step_pass",),
     "align_fused": ("align_kernel",),
+    "align_fused_lanes": ("align_kernel",),
+    "ip_suite_lanes": ("suite_",),
 }
 
 
@@ -699,6 +738,30 @@ def align_pair_gap(seq, k, p):
     return int(it), int(itp), dt, ang, float(ell), float(ellp)
 
 
+def align_counts(args, n_iter, p):
+    """(instructions, bytes, the plain run's AlignResult) of n_iter
+    iterations of align_fused on its arguments `args`: both passes at
+    each iteration of the plain run (its poses and ells), averaged, times
+    n_iter (module docstring); bytes: both clouds read once, the initial
+    and final state."""
+    import numpy as np
+    from cvo_slam_tpu_torch.cvo import engine, kernels
+    x, fx, mx, y, fy, my = args[:6]
+    seen = []
+
+    def iterate(yk, ellk):
+        seen.append((yk, float(ellk)))
+        return kernels.flow_and_step_plain(x, yk, fx, fy, mx, my, ellk, p)
+
+    ref = engine.align_loop(iterate, y, *args[6:9], p)
+    seen = seen[:int(ref.iters) + 1]
+    per_iter = [flow_step_counts(x, fx, mx, yk, fy, my, ek, p)[0]
+                for yk, ek in seen]
+    nbytes = (x.shape[0] + y.shape[0]) * ((3 + 5) * 4 + 1) + 13 * 4 \
+        + 13 * 4 + 2 * 4
+    return float(np.mean(per_iter)) * n_iter, nbytes, ref
+
+
 def align_checks(seq, p, report):
     """Phase 2, align_fused against align_fused_plain at CAP 3072 from the
     identity at ell 0.15: on frames 0 -> 1 ell equal, iterations within
@@ -707,7 +770,6 @@ def align_checks(seq, p, report):
     iterations (module docstring); on frames 1 -> 2 .. 5 -> 6 iterations
     within ALIGN_PAIRS_ITERS_SPREAD and the transform within
     ALIGN_PAIRS_GAP. seq: the sequence's first ALIGN_PAIRS + 1 clouds."""
-    import numpy as np
     import torch
     from cvo_slam_tpu_torch.cvo import engine, kernels
     (x, fx, mx), (y, fy, my) = seq[:2]
@@ -755,21 +817,8 @@ def align_checks(seq, p, report):
           f"{ALIGN_PAIRS_ITERS_SPREAD} iterations and {ALIGN_PAIRS_GAP} m / "
           f"rad: {'; '.join(gaps)}", flush=True)
 
-    # the bound: both passes at each iteration of the plain run
-    seen = []
-
-    def iterate(yk, ellk):
-        seen.append((yk, float(ellk)))
-        return kernels.flow_and_step_plain(x, yk, fx, fy, mx, my, ellk, p)
-
-    ref = engine.align_loop(iterate, y, *args[6:9], p)
-    seen = seen[:int(ref.iters) + 1]
-    per_iter = [flow_step_counts(x, fx, mx, yk, fy, my, ek, p)[0]
-                for yk, ek in seen]
     n_iter = int(iters) + 1
-    ops = float(np.mean(per_iter)) * n_iter
-    nbytes = (x.shape[0] + y.shape[0]) * ((3 + 5) * 4 + 1) + 13 * 4 \
-        + 13 * 4 + 2 * 4
+    ops, nbytes, _ = align_counts(args, n_iter, p)
     b, by = bound_ms(ops, nbytes)
     t_k = cuda_time_ms(lambda: kernels.align_fused_cuda(*args), reps=5,
                        trials=3)
@@ -790,6 +839,190 @@ def align_checks(seq, p, report):
                                  bound_by=by, iterations=n_iter,
                                  ms_per_iteration=t_k / n_iter,
                                  launch=launch)
+
+
+def _stack(clouds):
+    """(positions, features, mask) of a list of clouds, each stacked on a
+    leading lane axis."""
+    import torch
+    return tuple(torch.stack([c[i] for c in clouds]) for i in range(3))
+
+
+def _lanes_equal_solo(name, got, solos):
+    """Every lane of a lane launch's outputs bitwise equal to the outputs
+    of its one-lane call."""
+    import torch
+    for l, want in enumerate(solos):
+        if not all(torch.equal(g[l], w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name}: lane {l} differs from its solo "
+                                 f"launch")
+
+
+def _lane_profile(name, fn, solo_fn, lanes, reps=3):
+    """(device ms of one lane launch, device ms of its `lanes` solo
+    launches): each by torch.profiler, held at one kernel launch per lane
+    call and `lanes` per round of solo calls."""
+    names = DEVICE_NAMES[name]
+    t_d, per_call = device_profile(fn, names, reps=reps)
+    t_s, per_solo = device_profile(solo_fn, names, reps=reps)
+    if t_d is None or t_s is None:
+        raise AssertionError(f"{name}: no profiler window held every launch "
+                             f"of {names}")
+    if per_call != 1 or per_solo != lanes:
+        raise AssertionError(f"{name}: {per_call} launches per lane call, "
+                             f"{per_solo} per {lanes} solo calls")
+    return t_d, t_s
+
+
+def lane_checks(seq, p, report):
+    """Phase 2, the lanes of align_fused and of the suite (module
+    docstring). seq: the sequence's first ALIGN_PAIRS + 1 clouds at CAP
+    3072."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.ops import se3
+    dev = seq[0][0].device
+    entry = report["align_fused_lanes"]
+    # 1. frames k -> k + 1 as ALIGN_PAIRS lanes, distinct fixed clouds
+    S = ALIGN_PAIRS
+    largs = (*_stack(seq[:S]), *_stack(seq[1:S + 1]),
+             torch.eye(3, device=dev).expand(S, 3, 3).contiguous(),
+             torch.zeros(S, 3, device=dev),
+             torch.full((S,), ELLS[0], device=dev), p)
+    info = {}
+    got = kernels.align_fused_lanes_cuda(*largs, launch_info=info)
+    _lanes_equal_solo("align_fused lanes", got, [
+        kernels.align_fused_cuda(*align_args(seq, k, p)) for k in range(S)])
+    ops = nbytes = 0
+    gaps = []
+    for k in range(S):
+        it = int(got[3][k])
+        o, b_k, ref = align_counts(align_args(seq, k, p), it + 1, p)
+        ops, nbytes = ops + o, nbytes + b_k
+        dt, ang = transform_gap((got[0][k], got[1][k]), (ref.R, ref.T))
+        gaps.append(f"{k}->{k + 1}: {it} vs {int(ref.iters)}")
+        if abs(it - int(ref.iters)) > ALIGN_PAIRS_ITERS_SPREAD \
+                or max(dt, ang) > ALIGN_PAIRS_GAP:
+            raise AssertionError(f"align_fused lane {k}: {it} vs "
+                                 f"{int(ref.iters)} iterations, |dt| {dt}, "
+                                 f"angle {ang}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], dt, ang)
+    b, by = bound_ms(ops, nbytes)
+    t_k = cuda_time_ms(lambda: kernels.align_fused_lanes_cuda(*largs),
+                       reps=3, trials=3)
+    t_d, t_s = _lane_profile(
+        "align_fused_lanes", lambda: kernels.align_fused_lanes_cuda(*largs),
+        lambda: [kernels.align_fused_cuda(*align_args(seq, k, p))
+                 for k in range(S)], S)
+    t_p = cuda_time_ms(lambda: kernels.align_fused_lanes_plain(*largs),
+                       reps=1, trials=1)
+    lane_iters = int((got[3] + 1).sum())
+    print(f"align_fused lanes, frames 0 -> 1 .. {S - 1} -> {S} as {S} lanes "
+          f"(CAP {CAPS[0]}, ell {ELLS[0]}): every lane equal to its solo "
+          f"launch bit for bit; against the plain lanes {'; '.join(gaps)} "
+          f"iterations, within {ALIGN_PAIRS_ITERS_SPREAD} and "
+          f"{ALIGN_PAIRS_GAP} m / rad; {t_k:.4f} ms per call, device "
+          f"{t_d:.4f} ms in 1 launch against {t_s:.4f} ms in {S} solo "
+          f"launches, {t_d / lane_iters * 1e3:.2f} us per lane-iteration "
+          f"({lane_iters}); plain {t_p:.1f} ms; bound {b:.4f} ms ({by}), "
+          f"{b / t_d:.1%} on the device; launch {info}", flush=True)
+    entry.update(ms=t_k, device_ms=t_d, solo_device_ms=t_s, plain_ms=t_p,
+                 bound_ms=b, bound_by=by, lanes=S, launch=info)
+
+    # 2. every lane against the frame-0 cloud (loop-closure candidates
+    #    against one reference), the last lane started at its own solution
+    x0 = seq[0]
+    ell0 = torch.tensor(ELLS[0], device=dev)
+    entry["shared_fixed"] = {}
+    for S in LANE_COUNTS:
+        movs = [seq[1 + l % ALIGN_PAIRS] for l in range(S)]
+        R0 = torch.eye(3, device=dev).expand(S, 3, 3).contiguous()
+        T0 = torch.zeros(S, 3, device=dev)
+        ells = ell0.expand(S).contiguous()
+        if S > 1:
+            own = kernels.align_fused_cuda(*x0, *movs[-1], R0[-1].contiguous(),
+                                           T0[-1].contiguous(), ell0, p)
+            R0[-1], T0[-1], ells[-1] = own[0], own[1], own[2]
+        largs = (*x0, *_stack(movs), R0, T0, ells, p)
+        got = kernels.align_fused_lanes_cuda(*largs)
+
+        def solos():
+            return [kernels.align_fused_cuda(*x0, *movs[l],
+                                             R0[l].contiguous(),
+                                             T0[l].contiguous(), ells[l], p)
+                    for l in range(S)]
+        _lanes_equal_solo(f"align_fused {S} lanes on one fixed cloud", got,
+                          solos())
+        t_d, t_s = _lane_profile(
+            "align_fused_lanes",
+            lambda: kernels.align_fused_lanes_cuda(*largs), solos, S)
+        iters = [int(i) for i in got[3]]
+        n_iter = max(iters) + 1
+        lane_iters = sum(i + 1 for i in iters)
+        print(f"align_fused {S} lanes on the frame-0 cloud: iterations "
+              f"{iters}, every lane equal to its solo launch bit for bit; "
+              f"device {t_d:.4f} ms in 1 launch against {t_s:.4f} ms in {S} "
+              f"solo launches; {t_d / n_iter * 1e3:.2f} us per iteration "
+              f"({n_iter}), {t_d / lane_iters * 1e3:.2f} us per "
+              f"lane-iteration ({lane_iters})", flush=True)
+        entry["shared_fixed"][S] = dict(
+            iters=iters, device_ms=t_d, solo_device_ms=t_s,
+            us_per_iteration=t_d / n_iter * 1e3,
+            us_per_lane_iteration=t_d / lane_iters * 1e3)
+
+    # 3. the suite: frames l -> l + 1 as 4 lanes (yt under TWIST, both
+    #    ells), and one lane
+    entry = report["ip_suite_lanes"]
+    tw = se3.exp_se3(torch.tensor(TWIST, device=dev))
+    entry["by_lanes"] = {}
+    for S in (1, 4):
+        yts = [se3.transform_points(tw, seq[l + 1][0]).contiguous()
+               for l in range(S)]
+        ells = torch.tensor([ELLS[l % 2] for l in range(S)], device=dev)
+        sargs = (*_stack(seq[:S]), *_stack(seq[1:S + 1]), torch.stack(yts),
+                 ells, p)
+
+        def solos():
+            return [kernels.ip_suite_cuda(*seq[l], *seq[l + 1], yts[l],
+                                          ells[l], p) for l in range(S)]
+        got = kernels.ip_suite_lanes_cuda(*sargs)
+        _lanes_equal_solo(f"ip_suite {S} lanes", got, solos())
+        want = kernels.ip_suite_lanes_plain(*sargs)
+        torch.cuda.synchronize()
+        for k in (1, 3, 5, 7, 9):
+            if not torch.equal(got[k].float(), want[k].float()):
+                raise AssertionError(f"suite lanes count {k}: "
+                                     f"{got[k].tolist()} != {want[k].tolist()}")
+        err = 0.0
+        for k in (0, 2, 4, 6):
+            err = max(err, check_close(f"suite lanes sum {k}", got[k],
+                                       want[k], 1e-4, 0.0))
+        scale = max(float(want[8].abs().max()), 1.0)
+        err = max(err, check_close("suite lanes G", got[8] / scale,
+                                   want[8] / scale, 0.0, 1e-5) * scale)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        t_k = cuda_time_ms(lambda: kernels.ip_suite_lanes_cuda(*sargs))
+        t_d, t_s = _lane_profile(
+            "ip_suite_lanes", lambda: kernels.ip_suite_lanes_cuda(*sargs),
+            solos, S)
+        t_p = cuda_time_ms(lambda: kernels.ip_suite_lanes_plain(*sargs),
+                           reps=1)
+        counts = [suite_counts(*seq[l], *seq[l + 1], yts[l],
+                               float(ells[l]), p) for l in range(S)]
+        b, by = bound_ms(sum(c[0] for c in counts),
+                         sum(c[1] for c in counts))
+        print(f"ip_suite {S} lanes (CAP {CAPS[0]}, ells "
+              f"{[float(e) for e in ells]}): every lane equal to its solo "
+              f"launch bit for bit, counts equal to the plain lanes', max "
+              f"|err| {err:.3e}; {t_k:.4f} ms per call, device {t_d:.4f} ms "
+              f"in 1 launch against {t_s:.4f} ms in {S} solo launches; plain "
+              f"{t_p:.2f} ms; bound {b:.4f} ms ({by}), {b / t_d:.1%} on the "
+              f"device", flush=True)
+        entry["by_lanes"][S] = dict(ms=t_k, device_ms=t_d,
+                                    solo_device_ms=t_s, plain_ms=t_p,
+                                    bound_ms=b)
+        entry.update(ms=t_k, device_ms=t_d, solo_device_ms=t_s, plain_ms=t_p,
+                     bound_ms=b, bound_by=by, lanes=S)
 
 
 @contextlib.contextmanager
@@ -968,6 +1201,157 @@ def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES,
     if err.max() >= 0.05:
         raise AssertionError(f"position error {err.max()} m >= 0.05 m")
     return dict(t_frame=t_frame, lines=lines, stats=stats)
+
+
+def lockstep_sequences(folder, cam):
+    """Phase 3e's sequences: the phase-3 sequence in `folder`, then
+    LOCKSTEP_SEQS - 1 more (seeds 8, 9, ..., LOCKSTEP_STEPS) in
+    subfolders; their frames loaded once, N_FRAMES each."""
+    import numpy as np
+    from cvo_slam_tpu_torch.data import synthetic, tum
+    folders = [folder]
+    for k in range(1, LOCKSTEP_SEQS):
+        sub = os.path.join(folder, f"lockstep{k}")
+        synthetic.make_sequence(sub, cam, n_frames=N_FRAMES, seed=7 + k,
+                                step_twist=np.array(LOCKSTEP_STEPS[k]))
+        folders.append(sub)
+    return [[tum.load_image(f, r) for r in tum.load_association(
+        os.path.join(f, "associate.txt"))[:N_FRAMES]] for f in folders]
+
+
+def _solo_runs(frames, cam, cfg, force_last=False):
+    """Each sequence tracked alone (speculation off): per sequence its
+    poses, its update ms per frame and its tracker."""
+    import torch
+    from cvo_slam_tpu_torch.app.run_slam import build_tracker
+    out = []
+    with env(CVO_SLAM_SPECULATE="0"):
+        for seq in frames:
+            t = build_tracker(cam, cfg, device="cuda")
+            t.init()
+            poses, ms = [], []
+            for k, img in enumerate(seq):
+                if force_last and k == len(seq) - 1:
+                    t.force_keyframe()
+                t0 = time.perf_counter()
+                poses.append(t.update(img))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out.append((poses, ms, t))
+    return out
+
+
+def _lockstep_run(frames, cam, cfg, backend, force_last=False):
+    """The sequences in lockstep (parallel.multi_sequence) on `backend`,
+    counters set to 0 just before and read just after: per sequence its
+    poses, ms per round, the launches, the rounds and the tracker."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.parallel.multi_sequence import \
+        MultiSequenceTracker
+    mst = MultiSequenceTracker(cam, cfg, len(frames),
+                               backend=backend, device="cuda")
+    poses = [[] for _ in frames]
+    ms = []
+    kernels.reset_launch_counts()
+    for k in range(len(frames[0])):
+        if force_last and k == len(frames[0]) - 1:
+            mst.force_keyframe()
+        t0 = time.perf_counter()
+        for s, pose in enumerate(mst.update([f[k] for f in frames])):
+            poses[s].append(pose)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    return poses, ms, launches, dict(mst.rounds), mst
+
+
+def lockstep(frames, cam, report, card):
+    """Phase 3e: MultiSequenceTracker on the sequences `frames` (module
+    docstring): under pallas each sequence's poses bitwise equal to its
+    solo run, align_fused and the suite launched once per round of each
+    request kind (as lanes), never alone; under pallas_mom (2 sequences,
+    LOCKSTEP_SHORT frames) equal to solo; the whole pipeline (OnlyTracking
+    False, Max_KF_interval=3; 2 sequences, LOCKSTEP_SHORT frames, a forced
+    last keyframe) with the same keyframe counts and poses as solo."""
+    import numpy as np
+    from cvo_slam_tpu_torch.config import SlamConfig
+    cfg = SlamConfig.default_shipped().replace(OnlyTracking=True)
+
+    def equal(name, got, solo):
+        for s, (g, (w, _, _)) in enumerate(zip(got, solo)):
+            for k, (a, b) in enumerate(zip(g, w)):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"lockstep {name}: sequence {s} "
+                                         f"frame {k} differs from its solo "
+                                         f"run")
+
+    def check_launches(name, launches, rounds, align):
+        want = {"ip_suite_lanes": 2 * rounds["frame"] + rounds["align_ip"]
+                + rounds["ip"], "ip_suite": 0, "align_fused": 0}
+        if align == "align_fused_lanes":
+            want[align] = 2 * rounds["frame"] + rounds["align_ip"] \
+                + rounds["align"]
+        else:
+            want["align_fused_lanes"] = 0
+        got = {k: launches[k] for k in want}
+        if got != want or (align != "align_fused_lanes"
+                           and launches[align] == 0):
+            raise AssertionError(f"lockstep {name}: launches {launches}, "
+                                 f"rounds {rounds}, want {want}")
+
+    with env(CVO_SLAM_BACKEND="pallas"):
+        solo = _solo_runs(frames, cam, cfg)
+    got, ms, launches, rounds, _ = _lockstep_run(frames, cam, cfg,
+                                                 "pallas")
+    equal("pallas", got, solo)
+    check_launches("pallas", launches, rounds, "align_fused_lanes")
+    for name, n in launches.items():
+        if n and not report[name]["launches"]:
+            report[name]["launches"] = n
+    S = len(frames)
+    solo_ms = [m for _, t, _ in solo for m in t[2:]]
+    round_ms = ms[2:]
+    print(f"lockstep (pallas) {S} sequences x {N_FRAMES} frames 640x480 CAP "
+          f"{CAPS[0]} on {card}: poses equal to the solo runs bit for bit; "
+          f"rounds {rounds}, launches {launches}; {np.mean(round_ms):.1f} / "
+          f"{np.median(round_ms):.1f} ms per frame round (mean / median), "
+          f"{np.mean(round_ms) / S:.1f} ms per sequence-frame against "
+          f"{np.mean(solo_ms):.1f} / {np.median(solo_ms):.1f} ms per frame "
+          f"solo", flush=True)
+    report["align_fused_lanes"]["lockstep"] = dict(
+        sequences=S, frames=N_FRAMES, ms_per_round=float(np.mean(round_ms)),
+        ms_per_sequence_frame=float(np.mean(round_ms)) / S,
+        solo_ms_per_frame=float(np.mean(solo_ms)), rounds=rounds)
+
+    short = [f[:LOCKSTEP_SHORT] for f in frames[:2]]
+    with env(CVO_SLAM_BACKEND="pallas_mom"):
+        solo = _solo_runs(short, cam, cfg)
+    got, ms, launches, rounds, _ = _lockstep_run(short, cam, cfg,
+                                                 "pallas_mom")
+    equal("pallas_mom", got, solo)
+    check_launches("pallas_mom", launches, rounds, "moment_flow_step")
+    print(f"lockstep (pallas_mom) 2 sequences x {LOCKSTEP_SHORT} frames: "
+          f"poses equal to the solo runs bit for bit; rounds {rounds}, "
+          f"launches {launches}; {np.mean(ms[2:]):.1f} ms per frame round",
+          flush=True)
+
+    cfg = SlamConfig.default_shipped().replace(Max_KF_interval=3)
+    with env(CVO_SLAM_BACKEND="pallas"):
+        solo = _solo_runs(short, cam, cfg, force_last=True)
+        got, ms, launches, rounds, mst = _lockstep_run(short, cam, cfg,
+                                                       "pallas",
+                                                       force_last=True)
+    equal("whole pipeline", got, solo)
+    kfs = [len(t.graph.keyframes()) for t in mst.trackers]
+    want_kfs = [len(t.graph.keyframes()) for _, _, t in solo]
+    if kfs != want_kfs:
+        raise AssertionError(f"lockstep whole pipeline: keyframes {kfs}, "
+                             f"solo {want_kfs}")
+    print(f"lockstep whole pipeline (pallas, Max_KF_interval 3) 2 sequences "
+          f"x {LOCKSTEP_SHORT} frames: keyframes {kfs} as solo, poses equal "
+          f"to the solo runs bit for bit; rounds {rounds}, launches "
+          f"{launches}", flush=True)
 
 
 def loop_trajectory(n_out):
@@ -1291,8 +1675,10 @@ def main() -> int:
             clouds = first_pair_clouds(folder, cam)
             kernel_checks(clouds, p, report)
             flow_step_checks(clouds, p, report)
-            align_checks(sequence_clouds(folder, cam, CAPS[0],
-                                         ALIGN_PAIRS + 1), p, report)
+            seq = sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1)
+            align_checks(seq, p, report)
+            lane_checks(seq, p, report)
+            del seq
 
         # -- phase 3: tracking-only SLAM through the CLI's run() on each
         #    backend; phase 3d: speculation; phase 4: the whole system;
@@ -1326,6 +1712,14 @@ def main() -> int:
         if sp["hits"] < 1 or spec["lines"] != fused["lines"]:
             return fail("speculation: no hit, or poses not bitwise equal "
                         "to phase 3b's")
+        with phase("3e"):
+            t0 = time.perf_counter()
+            frames = lockstep_sequences(folder, cam)
+            print(f"lockstep sequences: {LOCKSTEP_SEQS - 1} more of "
+                  f"{N_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            lockstep(frames, cam, report, card)
+            del frames
         with phase("4"):
             s_mom = slam(os.path.join(folder, "slam"), report, card,
                          check_matcher=True)

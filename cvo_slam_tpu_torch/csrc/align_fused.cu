@@ -1,51 +1,72 @@
-// The whole CVO align loop (cvo.cpp:763-821) in one launch, for sm_90a.
+// The whole CVO align loop (cvo.cpp:763-821) in one launch, for sm_90a,
+// over S lanes: lane l aligns moving cloud l against fixed cloud l (or one
+// fixed cloud shared by every lane), each lane as its solo run.
 //
 // Replaces: cvo_slam_tpu/cvo/pallas_align.py:align_fused (kernel body
 // _align_kernel), the align of the `pallas` backend and of loop-closure
-// verification under `pallas` and `pallas_iter`. Its plain PyTorch version
-// is cvo/kernels.align_fused_plain: engine.align_loop over
-// ops/pairwise.flow_and_step, ops/cubic and ops/se3.
+// verification under `pallas` and `pallas_iter`; its lanes replace the
+// grid dimension that vmap prepends to it (the lockstep tracker,
+// parallel/batch.batched_align, engine.lc_verify_batch). Its plain PyTorch
+// version is cvo/kernels.align_fused_plain (per lane: align_fused_lanes_
+// plain): engine.align_loop over ops/pairwise.flow_and_step, ops/cubic and
+// ops/se3.
 //
 // A persistent cooperative kernel: the grid is at most as large as the
 // card can hold at once (occupancy x SMs), launched with
 // cudaLaunchCooperativeKernel, and every block loops over the work items
-// (row tile x column chunk, flow_step.cuh) of both passes. Per iteration:
+// (row tile x column chunk, flow_step.cuh) of both passes of every lane
+// still running. Per iteration:
 //   1. every block transforms the moving columns it stages, y = y0 R + Tt
-//      with Tt = -R^T T, with no global write;
+//      with Tt = -R^T T of the item's lane, with no global write;
 //   2. pass 1 (flow_step.cuh): the gate sweep, the keep bitmask and the
-//      flow partials; grid.sync();
-//   3. every block sums the flow partials in the same fixed order, so every
-//      block holds bit-identical omega, v and nnz;
-//   4. pass 2 over the set bits of the bitmask, partials, grid.sync();
-//   5. every block sums B..E and runs the scalar epilogue redundantly on
-//      thread 0: the smallest positive root of the step cubic (cvo.cpp:
-//      317-333), Exp_SEK3 (LieGroup.cpp:159-186), the se3 distance of the
-//      increment (cvo.cpp:94-104), both stop rules and the ell anneal
-//      (cvo.cpp:782, :804, :810-812). Every block reaches the same `done`,
-//      so no third barrier is needed: the next iteration's pass 1 writes
-//      flow partials and bitmask words that every block finished reading
-//      before step 4's barrier, and pass 2 writes step partials only after
-//      the next pass-1 barrier.
+//      flow partials of each running lane; grid.sync();
+//   3. every block sums each running lane's flow partials in the same fixed
+//      order, so every block holds bit-identical omega, v and nnz;
+//   4. pass 2 over the set bits of the bitmasks, partials, grid.sync();
+//   5. every block sums each running lane's B..E and runs the lanes'
+//      scalar epilogues redundantly, one thread per lane: the smallest
+//      positive root of the step cubic (cvo.cpp:317-333), Exp_SEK3
+//      (LieGroup.cpp:159-186), the se3 distance of the increment (cvo.cpp:
+//      94-104), both stop rules and the ell anneal (cvo.cpp:782, :804,
+//      :810-812). Every block reaches the same `done` of every lane, so no
+//      third barrier is needed: the next iteration's pass 1 writes flow
+//      partials and bitmask words that every block finished reading before
+//      step 4's barrier, and pass 2 writes step partials only after the
+//      next pass-1 barrier.
 // The epilogue mirrors pallas_align.py:67-181 (and the plain ops/cubic,
 // ops/se3) with CUDA's acosf and cbrtf. Every tile is computed: the Pallas
 // kernel's tile skipping is left to a later optimisation (skipped tiles
 // hold no gated pair, so the result is the same).
 //
+// Lanes (vmap of the while loop): each lane keeps the solo plan
+// (cvo/kernels.plan_split), its own bitmask, flow, count and step
+// partials, and its state (R, T, ell, done, iters, nnz) in every block's
+// shared memory. A lane that has stopped is frozen: its items are skipped
+// and its state no longer changes, but every block still reaches each
+// grid.sync(); the loop ends when every lane has stopped or at max_iter,
+// and each lane reports its own iteration count. The items of the running
+// lanes are dealt to the blocks as one list, lane after lane, so a stopped
+// lane leaves no block idle. Each lane's sums run in the solo order, so
+// every lane equals its solo launch bit for bit, and the solo wrapper is
+// the launch of one lane.
+//
 // What bounds it: arithmetic, as flow_step.cu, times the iterations; the
-// clouds (~0.2 MB) and the bitmask (1.2 MB at CAP 3072) stay in L2.
+// clouds (~0.2 MB a lane) and the bitmask (1.2 MB a lane at CAP 3072) stay
+// in L2.
 //
 // The design, against what held the first version back:
 //   1. the card is filled: the plan (cvo/kernels.plan_split) sizes the
 //      work items to the resident grid that align_fused_geometry reports
 //      (occupancy x SMs), so roughly every resident block has one item
 //      (576 items at CAP 3072, where the first version's 192 blocks left
-//      most of the card empty);
+//      most of the card empty); S lanes give S times the items;
 //   2. the gate is tested once per iteration: pass 1 records the kept
 //      pairs in the bitmask and pass 2 walks only its set bits (0.14% of
 //      the pairs at ell 0.15), in a fixed order;
-//   3. the finalize is parallel: all threads of every block sum the
+//   3. the finalize is parallel: all threads of every block sum a lane's
 //      partials, a fixed strided share each, then the block's tree; every
-//      block gets bit-identical sums;
+//      block gets bit-identical sums (lane after lane: each block reads
+//      S x 576 partials of each pass);
 //   4. rows are register-blocked and column tiles packed and staged with
 //      double-buffered cp.async (flow_step.cuh);
 //   5. no tensor cores: the gate's d^2 must round as the FMA chain of the
@@ -166,13 +187,16 @@ __device__ float dist_se3(const float* R, const float* t) {
                + (u[0] * u[0] + u[1] * u[1] + u[2] * u[2]));
 }
 
-// the loop state every block keeps (identically) in shared memory
+// the loop state of one lane, which every block keeps (identically) in
+// shared memory
 struct State {
   float R[9], T[3], ell;
   int done, iters, nnz;
 };
 
-// one iteration's epilogue (thread 0 of each block)
+constexpr int MAX_LANES = 32;   // lanes of one launch (kernels.MAX_LANES)
+
+// one iteration's epilogue of one lane
 __device__ void epilogue(State& st, int k, const float* wv, int nnz_k,
                          const float* bcde, const AlignParams& prm) {
   const float* w = wv;
@@ -208,68 +232,147 @@ __device__ void epilogue(State& st, int k, const float* wv, int nnz_k,
     if (k > prm.anneal_iter[i]) st.ell = prm.anneal_value[i];
 }
 
+// the moving cloud y0 R + Tt of a lane's state (update_tf + transform_pcd)
+__device__ __forceinline__ Pose pose_of(const State& st) {
+  Pose pose;
+  for (int i = 0; i < 9; ++i) pose.R[i] = st.R[i];
+  for (int i = 0; i < 3; ++i)
+    pose.Tt[i] = -(st.R[i] * st.T[0] + st.R[3 + i] * st.T[1]
+                   + st.R[6 + i] * st.T[2]);
+  return pose;
+}
+
+// the clouds of lane l: moving cloud l (M points a lane), fixed cloud l
+// (x_lane points a lane: N, or 0 for one fixed cloud of every lane)
+__device__ __forceinline__ Clouds lane_clouds(const Clouds& cl, int l,
+                                              int x_lane, int M) {
+  const size_t xo = (size_t)l * x_lane, yo = (size_t)l * M;
+  return Clouds{cl.x + 3 * xo, cl.fx + 5 * xo, cl.mx + xo,
+                cl.y + 3 * yo, cl.fy + 5 * yo, cl.my + yo};
+}
+
+// the lanes still running, in lane order (thread 0); the caller syncs
+__device__ __forceinline__ void list_running(const State* st, int lanes,
+                                             int* running, int* n_running) {
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int l = 0; l < lanes; ++l)
+      if (!st[l].done) running[n++] = l;
+    *n_running = n;
+  }
+}
+
 // at most 102 registers, so 5 blocks fit on an SM and the 576 work items at
 // CAP 3072 run at once on 132 SMs (unbounded, ptxas takes 128 registers and
-// 4 blocks per SM: 37.8 against 33.5 us per iteration on the H100)
+// 4 blocks per SM: 37.8 against 33.5 us per iteration on the H100).
+// LANES: the launch of several lanes (the running lanes listed in shared
+// memory after every epilogue); one lane takes the loop without the list,
+// so the one-lane align keeps its speed. Both run the same arithmetic.
+template <bool LANES>
 __global__ void __launch_bounds__(THREADS, 5)
-align_kernel(Clouds cl, Split sp, const float* __restrict__ init,
-             AlignParams prm, unsigned* __restrict__ bits,
-             float* __restrict__ fpart, int* __restrict__ npart,
-             float* __restrict__ spart, float* __restrict__ out_f,
-             int* __restrict__ out_n) {
+align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
+             const float* __restrict__ init, AlignParams prm,
+             unsigned* __restrict__ bits, float* __restrict__ fpart,
+             int* __restrict__ npart, float* __restrict__ spart,
+             float* __restrict__ out_f, int* __restrict__ out_n) {
+  constexpr int L = LANES ? MAX_LANES : 1;
   cg::grid_group grid = cg::this_grid();
   __shared__ Stage s;
   __shared__ RowColours rows;
   __shared__ Red red;
-  __shared__ State st;
-  __shared__ float wv[6], bcde[N_STEP];
-  __shared__ int nnz_k;
+  __shared__ State st[L];
+  __shared__ float wv[L][6], bcde[L][N_STEP];
+  __shared__ int nnz_k[L];
+  __shared__ int running[L];
+  __shared__ int n_running;
 
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int i = 0; i < 9; ++i) st.R[i] = init[i];
-    for (int i = 0; i < 3; ++i) st.T[i] = init[9 + i];
-    st.ell = init[12];
-    st.done = 0;
-    st.iters = prm.max_iter;
-    st.nnz = 0;
+  const int items = sp.items;
+  // each lane's scratch
+  const size_t lane_bits = (size_t)sp.col_tiles * sp.N;
+  if (tid < (LANES ? lanes : 1)) {
+    const float* in = init + 13 * tid;
+    State& q = st[tid];
+    for (int i = 0; i < 9; ++i) q.R[i] = in[i];
+    for (int i = 0; i < 3; ++i) q.T[i] = in[9 + i];
+    q.ell = in[12];
+    q.done = 0;
+    q.iters = prm.max_iter;
+    q.nnz = 0;
   }
   __syncthreads();
+  if constexpr (LANES) {
+    list_running(st, lanes, running, &n_running);
+    __syncthreads();
+  }
 
   for (int k = 0; k < prm.max_iter; ++k) {
-    Pose pose;
-    for (int i = 0; i < 9; ++i) pose.R[i] = st.R[i];
-    for (int i = 0; i < 3; ++i)
-      pose.Tt[i] = -(st.R[i] * st.T[0] + st.R[3 + i] * st.T[1]
-                     + st.R[6 + i] * st.T[2]);
-    const float ell = st.ell;
-    for (int item = blockIdx.x; item < sp.items; item += gridDim.x)
-      flow_item<true>(cl, sp, item, pose, ell, prm.k, s, rows, red, bits,
-                      fpart, npart);
+    const int n_run = LANES ? n_running : 1;
+    const int work = n_run * items;
+    const Pose pose = pose_of(st[0]);   // lane 0's (LANES: per item)
+    for (int a = blockIdx.x; a < work; a += gridDim.x) {
+      if constexpr (LANES) {
+        const int l = running[a / items];
+        flow_item<true>(lane_clouds(cl, l, x_lane, sp.M), sp, a % items,
+                        pose_of(st[l]), st[l].ell, prm.k, s, rows, red,
+                        bits + l * lane_bits, fpart + l * N_FLOW * items,
+                        npart + l * items);
+      } else {
+        flow_item<true>(cl, sp, a, pose, st[0].ell, prm.k, s, rows, red,
+                        bits, fpart, npart);
+      }
+    }
     __threadfence();
     grid.sync();
-    finalize_flow(fpart, npart, sp.items, prm.c, prm.d, red, wv, &nnz_k);
-    for (int item = blockIdx.x; item < sp.items; item += gridDim.x)
-      step_item<true>(cl, sp, item, pose, ell, wv, wv + 3, prm.k, rows, red,
-                      bits, spart);
+    for (int j = 0; j < n_run; ++j) {
+      const int l = LANES ? running[j] : 0;
+      finalize_flow(fpart + l * N_FLOW * items, npart + l * items, items,
+                    prm.c, prm.d, red, wv[l], &nnz_k[l]);
+    }
+    for (int a = blockIdx.x; a < work; a += gridDim.x) {
+      if constexpr (LANES) {
+        const int l = running[a / items];
+        step_item<true>(lane_clouds(cl, l, x_lane, sp.M), sp, a % items,
+                        pose_of(st[l]), st[l].ell, wv[l], wv[l] + 3, prm.k,
+                        rows, red, bits + l * lane_bits,
+                        spart + l * N_STEP * items);
+      } else {
+        step_item<true>(cl, sp, a, pose, st[0].ell, wv[0], wv[0] + 3,
+                        prm.k, rows, red, bits, spart);
+      }
+    }
     __threadfence();
     grid.sync();
-    finalize_step(spart, sp.items, red, bcde);
-    if (tid == 0) epilogue(st, k, wv, nnz_k, bcde, prm);
+    for (int j = 0; j < n_run; ++j) {
+      const int l = LANES ? running[j] : 0;
+      finalize_step(spart + l * N_STEP * items, items, red, bcde[l]);
+    }
+    if (tid < n_run) {
+      const int l = LANES ? running[tid] : 0;
+      epilogue(st[l], k, wv[l], nnz_k[l], bcde[l], prm);
+    }
     __syncthreads();
-    if (st.done) break;
+    if constexpr (LANES) {
+      list_running(st, lanes, running, &n_running);
+      __syncthreads();
+      if (n_running == 0) break;
+    } else if (st[0].done) {
+      break;
+    }
   }
-  if (blockIdx.x == 0 && tid == 0) {
-    for (int i = 0; i < 9; ++i) out_f[i] = st.R[i];
-    for (int i = 0; i < 3; ++i) out_f[9 + i] = st.T[i];
-    out_f[12] = st.ell;
-    out_n[0] = st.iters;
-    out_n[1] = st.nnz;
+  if (blockIdx.x == 0 && tid < (LANES ? lanes : 1)) {
+    const State& q = st[tid];
+    for (int i = 0; i < 9; ++i) out_f[13 * tid + i] = q.R[i];
+    for (int i = 0; i < 3; ++i) out_f[13 * tid + 9 + i] = q.T[i];
+    out_f[13 * tid + 12] = q.ell;
+    out_n[2 * tid] = q.iters;
+    out_n[2 * tid + 1] = q.nnz;
   }
 }
 
 // the resident grid: blocks per SM of align_kernel and SMs; refuses a card
 // without cooperative launch and a kernel that fits no block on an SM
+template <bool LANES>
 cudaError_t resident(int* per_sm, int* sms) {
   int dev = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -279,8 +382,8 @@ cudaError_t resident(int* per_sm, int* sms) {
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, align_kernel,
-                                                      THREADS, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, align_kernel<LANES>, THREADS, 0);
   if (err != cudaSuccess) return err;
   return *per_sm < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
@@ -292,7 +395,7 @@ cudaError_t resident(int* per_sm, int* sms) {
 // SMs, rows per work item, columns per tile. Returns the CUDA error code.
 extern "C" int align_fused_geometry(int* out) {
   int per_sm = 0, sms = 0;
-  const cudaError_t err = resident(&per_sm, &sms);
+  const cudaError_t err = resident<false>(&per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
   out[0] = per_sm;
   out[1] = sms;
@@ -302,38 +405,48 @@ extern "C" int align_fused_geometry(int* out) {
 }
 
 // Plain C entry point (loaded with ctypes): one cooperative launch on
-// `stream` for one alignment of the moving cloud y0/fy/my (M, each 16-byte
-// aligned) against the fixed cloud x/fx/mx (N), over the split of `chunks`
-// chunks of per_chunk column tiles. init (13 floats on the device): R0
+// `stream` for `lanes` alignments (1 <= lanes <= MAX_LANES): moving cloud
+// l, y0/fy/my + l M points (each lane's arrays 16-byte aligned), against
+// fixed cloud l, x/fx/mx + l x_lane points (x_lane = N, or 0 when every
+// lane aligns against one fixed cloud), over the split of `chunks` chunks
+// of per_chunk column tiles. init (13 floats a lane, on the device): R0
 // (row-major), T0, ell0. hf (host, 14 floats): log_ratio, d2ct, two_cl2,
 // s2cs2, sp_thres, c, d, eps, eps_2, min_step, max_step, the 3 anneal
-// values; hi (host, 4 ints): the 3 anneal iterations, max_iter. Scratch,
-// items = ceil(N/512) * chunks: bits ceil(M/32) * N words, fpart 6 * items
-// floats, npart items ints, spart 4 * items floats. out_f (13 floats): R,
-// T, ell; out_n (2 ints): iters, nnz. info (host, 4 ints): grid, blocks
-// per SM, SMs, work items. Returns the CUDA error code (0 = success); a
-// card without cooperative launch, or a kernel that fits no block on an
-// SM, is refused before anything runs.
+// values; hi (host, 4 ints): the 3 anneal iterations, max_iter. Scratch a
+// lane, items = ceil(N/512) * chunks: bits ceil(M/32) * N words, fpart
+// 6 * items floats, npart items ints, spart 4 * items floats, lane after
+// lane. out_f (13 floats a lane): R, T, ell; out_n (2 ints a lane): iters,
+// nnz. info (host, 4 ints): grid, blocks per SM, SMs, work items of the
+// launch. Returns the CUDA error code (0 = success); a card without
+// cooperative launch, or a kernel that fits no block on an SM, is refused
+// before anything runs.
 extern "C" int align_fused_launch(
     const float* x, const float* fx, const unsigned char* mx,
     const float* y0, const float* fy, const unsigned char* my, int N, int M,
-    int chunks, int per_chunk, const float* init, const float* hf,
-    const int* hi, unsigned* bits, float* fpart, int* npart,
-    float* spart, float* out_f, int* out_n, int* info,
+    int lanes, int x_lane, int chunks, int per_chunk, const float* init,
+    const float* hf, const int* hi, unsigned* bits, float* fpart,
+    int* npart, float* spart, float* out_f, int* out_n, int* info,
     cudaStream_t stream) {
   Split sp;
-  if (!make_split(N, M, chunks, per_chunk, sp))
+  if (!make_split(N, M, chunks, per_chunk, sp) || lanes < 1
+      || lanes > MAX_LANES || (x_lane != 0 && x_lane != N))
     return (int)cudaErrorInvalidValue;
-  if ((((uintptr_t)y0) | ((uintptr_t)fy) | ((uintptr_t)my)) & 15)
-    return (int)cudaErrorMisalignedAddress;
+  for (int l = 0; l < lanes; ++l) {
+    const size_t o = (size_t)l * M;
+    if ((((uintptr_t)(y0 + 3 * o)) | ((uintptr_t)(fy + 5 * o))
+         | ((uintptr_t)(my + o))) & 15)
+      return (int)cudaErrorMisalignedAddress;
+  }
   int per_sm = 0, sms = 0;
-  cudaError_t err = resident(&per_sm, &sms);
+  cudaError_t err = lanes == 1 ? resident<false>(&per_sm, &sms)
+                               : resident<true>(&per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
-  const int grid = sp.items < per_sm * sms ? sp.items : per_sm * sms;
+  const int work = lanes * sp.items;
+  const int grid = work < per_sm * sms ? work : per_sm * sms;
   info[0] = grid;
   info[1] = per_sm;
   info[2] = sms;
-  info[3] = sp.items;
+  info[3] = work;
 
   AlignParams prm{};
   prm.k.log_ratio = hf[0];
@@ -353,12 +466,14 @@ extern "C" int align_fused_launch(
   }
   prm.max_iter = hi[3];
   Clouds cl{x, fx, mx, y0, fy, my};
-  void* args[] = {(void*)&cl,    (void*)&sp,    (void*)&init,
-                  (void*)&prm,   (void*)&bits,  (void*)&fpart,
-                  (void*)&npart, (void*)&spart, (void*)&out_f,
-                  (void*)&out_n};
-  err = cudaLaunchCooperativeKernel((const void*)align_kernel, dim3(grid),
-                                    dim3(THREADS), args, 0, stream);
+  void* args[] = {(void*)&cl,    (void*)&x_lane, (void*)&sp,
+                  (void*)&lanes, (void*)&init,   (void*)&prm,
+                  (void*)&bits,  (void*)&fpart,  (void*)&npart,
+                  (void*)&spart, (void*)&out_f,  (void*)&out_n};
+  const void* kernel = lanes == 1 ? (const void*)align_kernel<false>
+                                  : (const void*)align_kernel<true>;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(THREADS), args,
+                                    0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

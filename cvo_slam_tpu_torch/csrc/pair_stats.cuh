@@ -10,7 +10,13 @@
 //
 // A launch's blocks are the work items of its sets, set after set in the
 // order of Sweep::set; a block finds its set from blockIdx.x against the
-// sets' first blocks (a branch uniform per block). Per item (stats_item):
+// sets' first blocks (a branch uniform per block). A launch of S lanes
+// (the suite's lanes, sweep_sets<MOM, true>) repeats its sets for every
+// lane: set after set, and within a set lane after lane, each lane's
+// clouds, partials, tickets and outputs at a fixed stride (Sweep::lane_*,
+// PairSet::row_lane / col_lane), each lane's sums in the one-lane order,
+// so every lane equals its launch alone bit for bit. Per item
+// (stats_item):
 //   * a tile of ROWS rows (RB per thread: -2 xa and |xa|^2 in registers,
 //     colours in shared memory) against a chunk of 32-column tiles of xb,
 //     staged with flow_step.cuh's double-buffered cp.async sweep;
@@ -26,7 +32,7 @@
 // Then the finalize (sweep_sets): each set's partials are summed in item
 // order in two levels, each with an integer ticket (flow_step.cuh's
 // last_block). The last block of each group of `group` consecutive items
-// of a set sums them into a group partial; the last group of the launch
+// of a set sums them into a group partial; the last group of the lane
 // to finish sums every set's groups, in order, into the set's outputs. A
 // thread loads 32 partials at once before it adds them in order, so
 // neither level waits on one load after another.
@@ -124,6 +130,8 @@ struct SweepShared {
 struct PairSet {
   Clouds cl;       // rows x/fx/mx (sp.N), columns y/fy/my (sp.M)
   Split sp;
+  int row_lane;    // points a lane of the rows and of the columns (lanes
+  int col_lane;    // only; 0: one cloud of every lane)
   int mom;         // with moments: NG + 1 floats per partial, else 1
   int item0;       // the set's first block in the launch
   int group;       // items per level-1 group
@@ -143,18 +151,22 @@ __host__ __device__ inline int set_groups(const PairSet& t) {
   return (t.sp.items + t.group - 1) / t.group;
 }
 
-// One launch: its sets in block order and the shared scratch.
+// One launch: its sets in block order and the shared scratch; with lanes,
+// the scratch, tickets and outputs of lane 0, and each lane's strides.
 struct Sweep {
   PairSet set[MAX_SETS];
   int nsets;
-  int groups;      // level-1 groups of the launch's sets
-  int* level2;     // the launch's level-2 ticket
+  int groups;      // level-1 groups of the launch's sets (of one lane)
+  int lanes;       // 1, or the lanes of a sweep_sets<MOM, true> launch
+  int lane_fpart, lane_npart, lane_gpart, lane_gnpart;   // lane strides
+  int lane_out_f, lane_out_n;
+  int* level2;     // the launch's (lane's) level-2 ticket
   int* level1;     // level-1 tickets, by the set's group0 + group
   float* fpart;
   int* npart;
   float* gpart;
   int* gnpart;
-  const float* ell;
+  const float* ell;   // one a lane
   Consts c;
 };
 
@@ -208,14 +220,13 @@ __device__ void sum_partials(bool mom, const float* src, const int* src_n,
 // fpart[NF - 1] (G at fpart[0:NG] with moments) and the count at *npart.
 // Every thread of the block calls it. ms: the block's moments (MOM only).
 template <bool MOM>
-__device__ void stats_item(const PairSet& set, int item, float ell,
-                           const Consts& c, Stage& s, RowShared& rs,
-                           Moments* ms, Red& red, float* __restrict__ fpart,
+__device__ void stats_item(const Clouds& cl, const Split& sp, int item,
+                           float ell, const Consts& c, Stage& s,
+                           RowShared& rs, Moments* ms, Red& red,
+                           float* __restrict__ fpart,
                            int* __restrict__ npart) {
   constexpr int NF = MOM ? NG + 1 : 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const Clouds& cl = set.cl;
-  const Split& sp = set.sp;
   const Item it = item_of(sp, item);
   Rows R;
   load_rows(cl, sp, it.rt, R, rs.colours);
@@ -339,49 +350,77 @@ __device__ void stats_item(const PairSet& set, int item, float ell,
   }
 }
 
+// the clouds of a set in lane l
+__device__ __forceinline__ Clouds set_clouds(const PairSet& t, int l) {
+  const size_t ro = (size_t)l * t.row_lane, co = (size_t)l * t.col_lane;
+  return Clouds{t.cl.x + 3 * ro, t.cl.fx + 5 * ro, t.cl.mx + ro,
+                t.cl.y + 3 * co, t.cl.fy + 5 * co, t.cl.my + co};
+}
+
 // The block's work item and the finalize of the launch w. MOM: 0 no set
 // of the launch takes moments, 1 every set does, 2 each set says
-// (PairSet::mom). Every thread of the block calls it.
-template <int MOM>
+// (PairSet::mom). LANES: the launch's w.lanes lanes, each set's blocks
+// lane after lane (else one lane, lane 0). Every thread of the block calls
+// it.
+template <int MOM, bool LANES = false>
 __device__ void sweep_sets(const Sweep& w, SweepShared<MOM != 0>& sh) {
+  const int S = LANES ? w.lanes : 1;
   int k = 0;
   for (int j = 1; j < w.nsets; ++j)
-    if ((int)blockIdx.x >= w.set[j].item0) k = j;
+    if ((int)blockIdx.x >= S * w.set[j].item0) k = j;
   const PairSet& set = w.set[k];
-  const int item = (int)blockIdx.x - set.item0;
+  const int b = (int)blockIdx.x - S * set.item0;
+  const int l = LANES ? b / set.sp.items : 0;
+  const int item = LANES ? b % set.sp.items : b;
   const bool mom = MOM == 1 || (MOM == 2 && set.mom);
   const int nf = mom ? NG + 1 : 1;
-  float* fpart = w.fpart + set.f0;
-  int* npart = w.npart + set.n0;
-  float* fp = fpart + (size_t)item * nf;
-  const float ell = *w.ell;
+  // a lane's partials, tickets and outputs lie l lane strides on
+  const size_t lf = (size_t)l * w.lane_fpart, ln = (size_t)l * w.lane_npart;
+  const float ell = w.ell[l];
+  // the lane's clouds, in shared memory (read where they are used, as the
+  // one-lane sweep reads them from the kernel's parameters)
+  __shared__ Clouds lane_cl;
+  if constexpr (LANES) {
+    if (threadIdx.x == 0) lane_cl = set_clouds(set, l);
+    __syncthreads();
+  }
+  const Clouds& cl = LANES ? lane_cl : set.cl;
+  float* fp = w.fpart + lf + set.f0 + (size_t)item * nf;
+  int* np = w.npart + ln + set.n0 + item;
   if constexpr (MOM == 0) {
-    stats_item<false>(set, item, ell, w.c, sh.s, sh.rs, nullptr, sh.red, fp,
-                      npart + item);
+    stats_item<false>(cl, set.sp, item, ell, w.c, sh.s, sh.rs, nullptr,
+                      sh.red, fp, np);
   } else if (mom) {
-    stats_item<true>(set, item, ell, w.c, sh.s, sh.rs, &sh.ms, sh.red, fp,
-                     npart + item);
+    stats_item<true>(cl, set.sp, item, ell, w.c, sh.s, sh.rs, &sh.ms,
+                     sh.red, fp, np);
   } else {
-    stats_item<false>(set, item, ell, w.c, sh.s, sh.rs, nullptr, sh.red, fp,
-                      npart + item);
+    stats_item<false>(cl, set.sp, item, ell, w.c, sh.s, sh.rs, nullptr,
+                      sh.red, fp, np);
   }
 
   __threadfence();   // every thread's partials, before the tickets
 
   // level 1: the last block of the item's group sums the group
+  const size_t lo = (size_t)l * w.lane_out_n;
+  float* lane_gpart = w.gpart + (size_t)l * w.lane_gpart;
+  int* lane_gnpart = w.gnpart + (size_t)l * w.lane_gnpart;
   const int g = item / set.group;
   const int g0 = g * set.group, g1 = min(g0 + set.group, set.sp.items);
-  if (!last_block(w.level1 + set.group0 + g, g1 - g0, &sh.last)) return;
-  float* gpart = w.gpart + set.gf0 + (size_t)g * nf;
-  sum_partials<MOM>(mom, fpart, npart, g0, g1, sh.red, gpart,
-                    gpart + nf - 1, w.gnpart + set.group0 + g);
+  if (!last_block(w.level1 + lo + set.group0 + g, g1 - g0, &sh.last))
+    return;
+  float* gpart = lane_gpart + set.gf0 + (size_t)g * nf;
+  sum_partials<MOM>(mom, w.fpart + lf + set.f0, w.npart + ln + set.n0, g0,
+                    g1, sh.red, gpart, gpart + nf - 1,
+                    lane_gnpart + set.group0 + g);
   __threadfence();
-  // level 2: the last group of the launch sums each set's groups
-  if (!last_block(w.level2, w.groups, &sh.last)) return;
+  // level 2: the last group of the lane sums each set's groups
+  if (!last_block(w.level2 + lo, w.groups, &sh.last)) return;
   for (int j = 0; j < w.nsets; ++j) {
     const PairSet& t = w.set[j];
-    sum_partials<MOM>(t.mom != 0, w.gpart + t.gf0, w.gnpart + t.group0, 0,
-                      set_groups(t), sh.red, t.out_g, t.out_sum, t.out_n);
+    sum_partials<MOM>(t.mom != 0, lane_gpart + t.gf0,
+                      lane_gnpart + t.group0, 0, set_groups(t), sh.red,
+                      t.out_g + (size_t)l * w.lane_out_f,
+                      t.out_sum + (size_t)l * w.lane_out_f, t.out_n + lo);
   }
 }
 
@@ -402,6 +441,8 @@ inline cudaError_t make_set(const float* xa, const float* fa,
   if ((((uintptr_t)xb) | ((uintptr_t)fb) | ((uintptr_t)mb)) & 15)
     return cudaErrorMisalignedAddress;
   set.cl = Clouds{xa, fa, ma, xb, fb, mb};
+  set.row_lane = 0;
+  set.col_lane = 0;
   set.mom = mom;
   set.item0 = 0;
   set.group = group;
@@ -433,11 +474,14 @@ int sweep_geometry(Kernel kernel, int* out) {
 }
 
 // host side: the launch of `nsets` sets in the given order (item0 and the
-// launch's group count filled in); returns its blocks
+// launch's group count filled in) for one lane; returns its blocks
 inline int make_sweep(const PairSet* sets, int nsets, Sweep& w) {
   int items = 0;
   w.nsets = nsets;
   w.groups = 0;
+  w.lanes = 1;
+  w.lane_fpart = w.lane_npart = w.lane_gpart = w.lane_gnpart = 0;
+  w.lane_out_f = w.lane_out_n = 0;
   for (int j = 0; j < nsets; ++j) {
     w.set[j] = sets[j];
     w.set[j].item0 = items;

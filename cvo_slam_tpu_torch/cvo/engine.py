@@ -17,9 +17,17 @@
   * `compute_innerproduct` runs the suite kernel (cvo.kernels.ip_suite);
     `compute_innerproduct_lc` (cvo.cpp:505-561) runs the pair-stats kernel
     (cvo.kernels.pair_stats) 6 + 2 times, and `lc_verify_batch` re-registers
-    and scores each loop-closure candidate in turn.
+    the loop-closure candidates of a round (under 'pallas' as the lanes of
+    one align_fused launch) and scores each.
+  * the lanes (the JAX package's vmapped align, multi_sequence.py:44-73):
+    `align_lanes`, `compute_innerproduct_lanes`,
+    `align_and_innerproduct_lanes` and `frame_step_lanes` run S requests of
+    one kind at once, under 'pallas' through one align_fused_lanes launch
+    per align and one ip_suite_lanes launch per inner-product suite; each
+    lane equals the one-lane function on its inputs bit for bit. Every
+    other backend aligns lane by lane (the port has no XLA path).
   * the Hessian's eigenvalue floor (se3_Hessian, cvo.cpp:620-759) is
-    `hessian_postprocess`.
+    `hessian_postprocess` (`hessian_postprocess_lanes` for a stack).
 
 Host-side `Cvo` mirrors the reference state plumbing: fixed/moving/previous
 clouds, update_fixed_pcd (:578), update_previous_pcd (:584), reset_keyframe
@@ -189,24 +197,34 @@ def align_loop(iterate, y0, R0, T0, ell0, p: CvoParams) -> AlignResult:
 
 def hessian_postprocess(H_raw, inliers, p: CvoParams):
     """Scale by -1/1e5 then shift the spectrum until min |eigenvalue| >= 1
-    (cvo.cpp:726-754); identity when no inliers.
+    (cvo.cpp:726-754); identity when no inliers (hessian_postprocess_lanes
+    of one lane)."""
+    return hessian_postprocess_lanes(H_raw[None], inliers.reshape(1), p)[0]
 
-    The eigenvalues come from the fixed-sweep Jacobi solver on the device;
-    the shift loop (at most 64 steps, float32 like the device) runs on the
-    six host copies."""
+
+def hessian_postprocess_lanes(H_raw, inliers, p: CvoParams):
+    """hessian_postprocess of a stack (S, 6, 6) with inliers (S,).
+
+    The eigenvalues come from one fixed-sweep Jacobi call over the stack on
+    the device (which gives each matrix's eigenvalues bit for bit as alone)
+    and one host copy; the shift loop (at most 64 steps, float32 like the
+    device) runs on each lane's six host copies."""
     H = H_raw * p.hessian_scale
-    lam = eigvalsh_jacobi(H).cpu().numpy()
-    total = np.float32(0.0)
-    for _ in range(64):
-        lam_min = lam[np.argmin(np.abs(lam))]
-        if not abs(lam_min) < p.hessian_min_abs_eig:
-            break
-        shift = np.float32(1.0) - lam_min
-        lam = lam + shift
-        total = np.float32(total + shift)
+    lams = eigvalsh_jacobi(H).cpu().numpy()
+    totals = np.zeros(len(lams), np.float32)
+    for j, lam in enumerate(lams):
+        total = np.float32(0.0)
+        for _ in range(64):
+            lam_min = lam[np.argmin(np.abs(lam))]
+            if not abs(lam_min) < p.hessian_min_abs_eig:
+                break
+            shift = np.float32(1.0) - lam_min
+            lam = lam + shift
+            total = np.float32(total + shift)
+        totals[j] = total
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    H = H + float(total) * eye
-    return torch.where(inliers > 0, H, eye)
+    H = H + torch.as_tensor(totals, device=H.device)[:, None, None] * eye
+    return torch.where(inliers.reshape(-1, 1, 1) > 0, H, eye)
 
 
 def compute_innerproduct(fixed: PointCloud, moving: PointCloud, tran, ell,
@@ -262,6 +280,146 @@ def frame_step(prev: PointCloud, kf: PointCloud, cur: PointCloud,
     return res1, ip1, res2, ip2, guess
 
 
+# ---------------------------------------------------------------------------
+# lanes: S requests of one kind at once (the JAX package's vmap)
+# ---------------------------------------------------------------------------
+
+def stack_clouds(clouds) -> PointCloud:
+    """S clouds of one capacity as one PointCloud with a leading lane
+    axis, (S, CAP, .) each."""
+    return PointCloud(*(torch.stack(list(t)) for t in zip(*clouds)))
+
+
+def unstack_clouds(stacked: PointCloud):
+    """The S clouds of a stacked PointCloud (views)."""
+    return [PointCloud(*(t[l] for t in stacked))
+            for l in range(stacked.positions.shape[0])]
+
+
+def _lane_fixed(fixed, lanes: int):
+    """The fixed clouds of `lanes` lanes: a list of S clouds, or one cloud
+    that every lane aligns against."""
+    if isinstance(fixed, PointCloud):
+        return [fixed] * lanes
+    if len(fixed) != lanes:
+        raise ValueError(f"{len(fixed)} fixed clouds for {lanes} lanes")
+    return list(fixed)
+
+
+def _stacked_fixed(fixed) -> PointCloud:
+    """The kernels' fixed operand: a stack, or the one shared cloud."""
+    return fixed if isinstance(fixed, PointCloud) else stack_clouds(fixed)
+
+
+def _stack_f32(values, dev):
+    """Per-lane values (device tensors or host arrays / scalars) as one f32
+    tensor with a leading lane axis."""
+    if all(isinstance(v, torch.Tensor) for v in values):
+        return torch.stack([_f32(v, dev) for v in values])
+    return _f32(np.stack([np.asarray(v, np.float32) for v in values]), dev)
+
+
+def _stack_results(results) -> AlignResult:
+    return AlignResult(*(torch.stack(list(v)) for v in zip(*results)))
+
+
+def align_lanes(fixed, moving, R0, T0, ell0, p: CvoParams,
+                backend: str = "pallas_mom", moving_stacked=None,
+                fixed_stacked=None) -> AlignResult:
+    """align over S lanes (the JAX package's vmapped align): lane l aligns
+    moving[l] against fixed[l] (a list of S clouds), or against `fixed` (one
+    PointCloud of every lane), from (R0[l], T0[l], ell0[l]). Under 'pallas'
+    one align_fused_lanes launch, a stopped lane frozen while the others
+    run; under every other backend lane by lane. Each lane equals align on
+    its inputs bit for bit. Returns an AlignResult with a leading lane
+    axis. moving_stacked / fixed_stacked: the clouds already stacked."""
+    check_backend(backend)
+    lanes = len(moving)
+    if backend != "pallas":
+        return _stack_results(
+            align(f, m, R0[l], T0[l], ell0[l], p, backend)
+            for l, (f, m) in enumerate(zip(_lane_fixed(fixed, lanes),
+                                           moving)))
+    mv = stack_clouds(moving) if moving_stacked is None else moving_stacked
+    fx = _stacked_fixed(fixed) if fixed_stacked is None else fixed_stacked
+    dev = mv.device
+    R, T, ell, iters, nnz = kernels.align_fused_lanes(
+        fx.positions, fx.features, fx.mask, mv.positions, mv.features,
+        mv.mask, _stack_f32([R0[l] for l in range(lanes)], dev),
+        _stack_f32([T0[l] for l in range(lanes)], dev),
+        _stack_f32([ell0[l] for l in range(lanes)], dev).reshape(lanes), p)
+    # the final update_tf of each lane, as align makes it
+    transform = torch.stack([se3.make_pose(R[l].T, -(R[l].T @ T[l]))
+                             for l in range(lanes)])
+    return AlignResult(R, T, transform, ell, iters, nnz)
+
+
+def compute_innerproduct_lanes(fixed, moving, tran, ell, p: CvoParams,
+                               moving_stacked=None, fixed_stacked=None):
+    """compute_innerproduct over S lanes, the suites in one ip_suite_lanes
+    launch: fixed/moving as align_lanes takes them, tran[l] and ell[l] per
+    lane. Returns compute_innerproduct's dict, each entry with a leading
+    lane axis; each lane equals compute_innerproduct on its inputs bit for
+    bit."""
+    lanes = len(moving)
+    mv = stack_clouds(moving) if moving_stacked is None else moving_stacked
+    fx = _stacked_fixed(fixed) if fixed_stacked is None else fixed_stacked
+    dev = mv.device
+    trans = [_f32(tran[l], dev) for l in range(lanes)]
+    ells = [_f32(ell[l], dev).reshape(()) for l in range(lanes)]
+    yt = torch.stack([se3.transform_points(trans[l], moving[l].positions)
+                      .contiguous() for l in range(lanes)])
+    (pre_v, pre_n, post_v, post_n, fixed_v, _, moving_v, _, G,
+     inliers) = kernels.ip_suite_lanes(
+        fx.positions, fx.features, fx.mask, mv.positions, mv.features,
+        mv.mask, yt, torch.stack(ells), p)
+    H_raw = torch.stack([pairwise.assemble_hessian(G[l], ells[l])
+                         for l in range(lanes)])
+    cos_angle = post_v / (torch.sqrt(fixed_v) * torch.sqrt(moving_v))
+    post_hessian = hessian_postprocess_lanes(H_raw, inliers, p)
+    return dict(inn_pre=pre_v, inn_pre_num=pre_n, inn_post=post_v,
+                inn_post_num=post_n, inn_fixed=fixed_v, inn_moving=moving_v,
+                cos_angle=cos_angle, post_hessian=post_hessian,
+                inliers=inliers)
+
+
+def align_and_innerproduct_lanes(fixed, moving, R0, T0, ell0, p: CvoParams,
+                                 backend: str = "pallas_mom"):
+    """align_and_innerproduct over S lanes (align_lanes, then
+    compute_innerproduct_lanes on its results, the clouds stacked once)."""
+    mv = stack_clouds(moving)
+    fx = _stacked_fixed(fixed)
+    res = align_lanes(fixed, moving, R0, T0, ell0, p, backend, mv, fx)
+    ip = compute_innerproduct_lanes(fixed, moving, res.transform, res.ell,
+                                    p, mv, fx)
+    return res, ip
+
+
+def frame_step_lanes(prev, kf, cur, R_odo0, T_odo0, ell_odo0, kf_transform,
+                     ell_kf0, p: CvoParams, backend: str = "pallas_mom"):
+    """frame_step over S lanes: prev, kf and cur lists of S clouds, the
+    other arguments per lane. Two align_lanes and two
+    compute_innerproduct_lanes; the keyframe warm start of each lane on the
+    device in f32, as frame_step makes it. Returns (res_odo, ip_odo,
+    res_kf, ip_kf, guess), each with a leading lane axis."""
+    lanes = len(cur)
+    dev = cur[0].device
+    mv = stack_clouds(cur)
+    prev_st, kf_st = stack_clouds(prev), stack_clouds(kf)
+    res1 = align_lanes(prev, cur, R_odo0, T_odo0, ell_odo0, p, backend, mv,
+                       prev_st)
+    ip1 = compute_innerproduct_lanes(prev, cur, res1.transform, res1.ell, p,
+                                     mv, prev_st)
+    guess = [_f32(kf_transform[l], dev) @ res1.transform[l]
+             for l in range(lanes)]
+    Rk0 = [g[:3, :3].T for g in guess]
+    Tk0 = [-(R @ g[:3, 3]) for R, g in zip(Rk0, guess)]
+    res2 = align_lanes(kf, cur, Rk0, Tk0, ell_kf0, p, backend, mv, kf_st)
+    ip2 = compute_innerproduct_lanes(kf, cur, res2.transform, res2.ell, p,
+                                     mv, kf_st)
+    return res1, ip1, res2, ip2, torch.stack(guess)
+
+
 def compute_innerproduct_lc(fixed: PointCloud, moving: PointCloud,
                             prior_tran, lc_prior_tran, lc_prior_tran_2,
                             lc_tran, ell, p: CvoParams):
@@ -304,23 +462,30 @@ def lc_verify_batch(fixed: PointCloud, movings, R0, T0, ell0, priors,
                     lc_priors, p: CvoParams, backend: str = "pallas_mom"):
     """Every loop-closure candidate verification of one detection round
     (keyframe_graph.cpp:693-714: reset_initial(lc_prior) -> set_pcd(ref) ->
-    match_keyframe(cand) -> compute_innerproduct_lc), one candidate after
-    the other against the shared reference cloud. The JAX package vmaps the
-    candidates with converged lanes frozen, so each lane equals its solo
-    run: this loop computes the same. The pnpransac prior is the identity
-    (never assigned in the reference's active code).
+    match_keyframe(cand) -> compute_innerproduct_lc) against the shared
+    reference cloud. Under 'pallas' the candidates are the lanes of one
+    align_fused launch with the reference as every lane's fixed cloud (the
+    JAX package's vmap, converged lanes frozen, so each lane equals its
+    solo run); a single candidate, and every other backend, align one
+    candidate after the other. Then compute_innerproduct_lc per candidate.
+    The pnpransac prior is the identity (never assigned in the reference's
+    active code).
 
     movings: a sequence of PointCloud; R0/T0/ell0/priors/lc_priors: one
     entry per candidate. Returns [(AlignResult, lc dict)] in order."""
     eye4 = np.eye(4, dtype=np.float32)
-    out = []
-    for moving, R0_i, T0_i, ell0_i, prior, lc_prior in zip(
-            movings, R0, T0, ell0, priors, lc_priors):
-        res = align(fixed, moving, R0_i, T0_i, ell0_i, p, backend)
-        lc = compute_innerproduct_lc(fixed, moving, prior, lc_prior, eye4,
-                                     res.transform, res.ell, p)
-        out.append((res, lc))
-    return out
+    if backend == "pallas" and len(movings) > 1:
+        lanes = align_lanes(fixed, movings, R0, T0, ell0, p, backend)
+        results = [AlignResult(*(t[l] for t in lanes))
+                   for l in range(len(movings))]
+    else:
+        results = [align(fixed, moving, R0_i, T0_i, ell0_i, p, backend)
+                   for moving, R0_i, T0_i, ell0_i in zip(movings, R0, T0,
+                                                         ell0)]
+    return [(res, compute_innerproduct_lc(fixed, moving, prior, lc_prior,
+                                          eye4, res.transform, res.ell, p))
+            for res, moving, prior, lc_prior in zip(results, movings, priors,
+                                                    lc_priors)]
 
 
 def to_host(tree):

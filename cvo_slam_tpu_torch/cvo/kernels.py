@@ -11,7 +11,9 @@ version.
   * `ip_suite` (csrc/ip_suite.cu): the pairwise work of
     compute_innerproduct (cvo.cpp:475-503): four gated inner products with
     their pair counts and the 13x13 Hessian moment matrix G, each pair set
-    one pair-stats sweep, all four in one launch.
+    one pair-stats sweep, all four in one launch; `ip_suite_lanes`: the
+    suites of S cloud pairs in one launch, each lane equal to its one-lane
+    launch bit for bit (the one-lane suite is its S = 1 launch).
   * `pair_stats` (csrc/pair_stats.cu): one gated inner product of a cloud
     pair with its pair count and, on request, the Hessian moments G
     (function_inner_product and se3_Hessian, cvo.cpp:388-459, :620-759),
@@ -25,7 +27,11 @@ version.
   * `align_fused` (csrc/align_fused.cu): the whole align loop in one
     cooperative launch (the pallas backend, and loop-closure verification
     under pallas and pallas_iter); its plain version is engine.align_loop
-    over the plain flow_and_step.
+    over the plain flow_and_step. `align_fused_lanes`: S alignments in one
+    launch (lockstep tracking, batched align, loop-closure candidates
+    against one shared fixed cloud), a stopped lane frozen while the
+    others run, each lane equal to its one-lane launch bit for bit (the
+    one-lane align is its S = 1 launch).
 
 Every kernel splits its pairs into work items, a row tile against a chunk
 of 32-column tiles; `plan_split` sizes the items to the card's resident
@@ -89,7 +95,15 @@ STEP = KernelInfo("step_coeffs", "flow_step.cu",
                   "cvo_slam_tpu/cvo/pallas_kernels.py:304")
 ALIGN = KernelInfo("align_fused", "align_fused.cu",
                    "cvo_slam_tpu/cvo/pallas_align.py:477")
-KERNELS = (MOMENT, IP_SUITE, PAIR_STATS, FLOW_AND_STEP, FLOW, STEP, ALIGN)
+# the lane launches of the same two kernels (vmap's grid dimension of the
+# Pallas kernels), counted apart from the one-lane calls
+ALIGN_LANES = KernelInfo("align_fused_lanes", "align_fused.cu",
+                         "cvo_slam_tpu/cvo/pallas_align.py:477")
+IP_SUITE_LANES = KernelInfo("ip_suite_lanes", "ip_suite.cu",
+                            "cvo_slam_tpu/cvo/pallas_kernels.py:802")
+KERNELS = (MOMENT, IP_SUITE, PAIR_STATS, FLOW_AND_STEP, FLOW, STEP, ALIGN,
+           ALIGN_LANES, IP_SUITE_LANES)
+MAX_LANES = 32   # lanes of one align_fused launch (csrc/align_fused.cu)
 
 
 def reset_launch_counts():
@@ -133,10 +147,33 @@ def _raise_on(err, name):
 
 
 def _check_staged(prefix, pos, feat, mask):
-    """The kernels stage their column cloud with 16-byte copies."""
+    """The kernels stage their column cloud with 16-byte copies; for a
+    stack of clouds, every lane's."""
     for name, t in (("positions", pos), ("features", feat), ("mask", mask)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{prefix} {name} is not 16-byte aligned")
+        stacked = t.dim() > (1 if name == "mask" else 2) and t.shape[0] > 1
+        lane = t.stride(0) * t.element_size() if stacked else 0
+        if t.data_ptr() % 16 or lane % 16:
+            raise ValueError(f"{prefix} {name} is not 16-byte aligned"
+                             + (" in every lane" if lane % 16 else ""))
+
+
+def _check_lanes(lanes):
+    """The lane kernels take 1 to MAX_LANES lanes a launch."""
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"{lanes} lanes: one launch takes 1 to {MAX_LANES}")
+
+
+def _check_lane_cloud(prefix, pos, feat, mask, lanes, n, device):
+    """A stack of `lanes` clouds of n points (S, n, .), or one cloud of
+    every lane (n, .); returns the points a lane (n, or 0 for the one
+    cloud)."""
+    if pos.dim() == 2:
+        _check_cloud(prefix, pos, feat, mask, n, device)
+        return 0
+    _check(prefix + " positions", pos, torch.float32, (lanes, n, 3), device)
+    _check(prefix + " features", feat, torch.float32, (lanes, n, 5), device)
+    _check(prefix + " mask", mask, torch.bool, (lanes, n), device)
+    return n
 
 
 _fns: Dict[Tuple[str, str], object] = {}
@@ -299,11 +336,14 @@ def _plan_for(kernel: KernelInfo, symbol: str, n, m, device, *args: int):
     return plans[0], per_sm, sms
 
 
-def _scratch(plan: SplitPlan, device, bits=None, with_bits=True):
-    """The scratch of a per-pair launch (plan.scratch()'s shapes): the keep
-    bitmask (`bits` when given), the f32 flow partials, the counts and the
-    f32 step partials."""
+def _scratch(plan: SplitPlan, device, bits=None, with_bits=True, lanes=1):
+    """The scratch of a per-pair launch (plan.scratch()'s shapes; for more
+    than one lane, each with a leading lane axis): the keep bitmask (`bits`
+    when given), the f32 flow partials, the counts and the f32 step
+    partials."""
     shapes = plan.scratch()
+    if lanes > 1:
+        shapes = {k: (lanes,) + v for k, v in shapes.items()}
     if bits is None and with_bits:
         bits = torch.empty(shapes["bits"], dtype=torch.int32, device=device)
     return (bits,
@@ -509,25 +549,27 @@ def suite_scratch(plans):
     return shapes, tuple(offsets)
 
 
-def ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p: CvoParams,
+def _suite_launch(x, fx, mx, y, fy, my, yt, ell, p: CvoParams, lanes,
                   launch_info=None):
-    """The CUDA suite kernel: same function and tuple as ip_suite_plain, in
-    one launch over the four pair sets. A launch_info dict receives the
-    grid, blocks per SM, SMs and each set's split."""
-    dev = x.device
-    n, m = x.shape[0], y.shape[0]
-    _check_cloud("fixed", x, fx, mx, n, dev)
-    _check_cloud("moving", y, fy, my, m, dev)
-    _check("yt", yt, torch.float32, (m, 3), dev)
+    """One launch of csrc/ip_suite.cu for `lanes` lanes: x/fx/mx a stack of
+    `lanes` fixed clouds or one fixed cloud of every lane, y/fy/my and yt
+    stacks of `lanes`, ell (lanes,). Returns (out_f (lanes, 173), out_n
+    (lanes, ...)). A launch_info dict receives the grid, blocks per SM,
+    SMs and each set's split."""
+    dev = y.device
+    n, m = x.shape[-2], y.shape[1]
+    x_lane = _check_lane_cloud("fixed", x, fx, mx, lanes, n, dev)
+    _check_lane_cloud("moving", y, fy, my, lanes, m, dev)
+    _check("yt", yt, torch.float32, (lanes, m, 3), dev)
+    _check("ell", ell, torch.float32, (lanes,), dev)
     # both clouds are staged as columns: fixed for pre, post and fixed,
     # moving for the moving self set
     _check_staged("fixed", x, fx, mx)
     _check_staged("moving", y, fy, my)
-    ell = _as_ell(ell, dev).contiguous()
     plans, per_sm, sms = _plans_for(IP_SUITE, "suite_geometry",
                                     suite_shapes(n, m), dev)
     fn = _fn(IP_SUITE, "ip_suite_launch",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
              + [ctypes.POINTER(ctypes.c_int)] * 2
              + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 7)
     shapes, offsets = suite_scratch(plans)
@@ -535,33 +577,95 @@ def ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p: CvoParams,
         q.chunks, q.tiles_per_chunk, finalize_group(q.items), *o)])
     sizes = (ctypes.c_int * 5)(*[shapes[k][0] for k in (
         "fpart", "npart", "gpart", "gnpart", "out_n")])
-    fpart, gpart, out_f = (torch.empty(shapes[k], dtype=torch.float32,
-                                       device=dev)
+    fpart, gpart, out_f = (torch.empty((lanes,) + shapes[k],
+                                       dtype=torch.float32, device=dev)
                            for k in ("fpart", "gpart", "out_f"))
-    npart, gnpart, out_n = (torch.empty(shapes[k], dtype=torch.int32,
-                                        device=dev)
+    npart, gnpart, out_n = (torch.empty((lanes,) + shapes[k],
+                                        dtype=torch.int32, device=dev)
                             for k in ("npart", "gnpart", "out_n"))
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(y), _ptr(fy), _ptr(my),
-             _ptr(yt), _ptr(ell), n, m, plan, sizes,
+             _ptr(yt), _ptr(ell), n, m, lanes, x_lane, plan, sizes,
              pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
              p.sigma * p.sigma, p.c_sigma * p.c_sigma,
              2.0 * p.c_ell * p.c_ell,
              _ptr(fpart), _ptr(npart), _ptr(gpart), _ptr(gnpart),
              _ptr(out_f), _ptr(out_n), _stream(dev))
     _raise_on(err, IP_SUITE.name)
-    IP_SUITE.count_launch()
     if launch_info is not None:
-        launch_info.update(grid=sum(q.items for q in plans),
-                           blocks_per_sm=per_sm, sms=sms,
+        launch_info.update(grid=lanes * sum(q.items for q in plans),
+                           blocks_per_sm=per_sm, sms=sms, lanes=lanes,
                            chunks=tuple(q.chunks for q in plans),
                            tiles_per_chunk=tuple(q.tiles_per_chunk
                                                  for q in plans))
-    G = out_f[:NG].reshape(13, 13)
-    s = out_f[NG:NG + 4]
-    counts = out_n[:4]
+    return out_f, out_n
+
+
+def _suite_tuple(out_f, out_n):
+    """The suite's 10-tuple from a launch's outputs, each with the lane
+    axis first."""
+    G = out_f[:, :NG].reshape(-1, 13, 13)
+    s = out_f[:, NG:NG + 4]
+    counts = out_n[:, :4]
     n_f = torch.where(counts == 0, torch.ones_like(counts), counts).float()
-    return (s[0], n_f[0], s[1], n_f[1], s[2], n_f[2], s[3], n_f[3], G,
-            out_n[1])
+    return (s[:, 0], n_f[:, 0], s[:, 1], n_f[:, 1], s[:, 2], n_f[:, 2],
+            s[:, 3], n_f[:, 3], G, out_n[:, 1])
+
+
+def ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p: CvoParams,
+                  launch_info=None):
+    """The CUDA suite kernel: same function and tuple as ip_suite_plain, in
+    one launch over the four pair sets (the launch of one lane). A
+    launch_info dict receives the grid, blocks per SM, SMs and each set's
+    split."""
+    dev = x.device
+    _check_cloud("fixed", x, fx, mx, x.shape[0], dev)
+    _check("yt", yt, torch.float32, (y.shape[0], 3), dev)
+    out_f, out_n = _suite_launch(
+        x, fx, mx, y[None], fy[None], my[None], yt[None],
+        _as_ell(ell, dev).reshape(1).contiguous(), p, 1, launch_info)
+    IP_SUITE.count_launch()
+    return tuple(t[0] for t in _suite_tuple(out_f, out_n))
+
+
+def ip_suite_lanes_plain(x, fx, mx, y, fy, my, yt, ell, p: CvoParams):
+    """The plain version of the suite's lanes: ip_suite_plain lane by lane,
+    each output stacked on a leading lane axis."""
+    lanes = y.shape[0]
+    ell = torch.as_tensor(ell, dtype=torch.float32, device=y.device)
+    outs = [ip_suite_plain(*(_lane(t, l) for t in (x, fx, mx)), y[l], fy[l],
+                           my[l], yt[l], ell[l], p) for l in range(lanes)]
+    return tuple(torch.stack(v) for v in zip(*outs))
+
+
+def ip_suite_lanes_cuda(x, fx, mx, y, fy, my, yt, ell, p: CvoParams,
+                        launch_info=None):
+    """The CUDA suite kernel over S lanes in one launch: same function and
+    tuple as ip_suite_lanes_plain."""
+    lanes = y.shape[0]
+    _check_lanes(lanes)
+    out_f, out_n = _suite_launch(x, fx, mx, y, fy, my, yt, ell, p, lanes,
+                                 launch_info)
+    IP_SUITE_LANES.count_launch()
+    return _suite_tuple(out_f, out_n)
+
+
+def ip_suite_lanes(x, fx, mx, y, fy, my, yt, ell, p: CvoParams):
+    """The suites of S cloud pairs: y/fy/my (S, M, .) the moving clouds, yt
+    (S, M, 3) their positions under each lane's registration result, ell
+    (S,), and x/fx/mx (S, N, .) the fixed clouds or (N, .) one fixed cloud
+    of every lane. Returns ip_suite's 10-tuple, each entry with a leading
+    lane axis."""
+    if y.device.type == "cpu":
+        return ip_suite_lanes_plain(x, fx, mx, y, fy, my, yt, ell, p)
+    if y.device.type == "cuda":
+        return ip_suite_lanes_cuda(x, fx, mx, y, fy, my, yt, ell, p)
+    raise ValueError(f"unsupported device {y.device}")
+
+
+def _lane(t, l):
+    """Lane l of a stack of clouds, or the one cloud of every lane (a
+    fixed cloud with no lane axis)."""
+    return t[l] if t.dim() == (2 if t.dtype == torch.bool else 3) else t
 
 
 def ip_suite(x, fx, mx, y, fy, my, yt, ell, p: CvoParams):
@@ -785,22 +889,26 @@ def align_fused_plain(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams):
     return res.R, res.T, res.ell, res.iters, res.nnz
 
 
-def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
-                     launch_info: dict | None = None):
-    """The cooperative align kernel: same function and tuple as
-    align_fused_plain, in one launch. A `launch_info` dict receives the
-    launch's grid, blocks per SM, SM count, work items and the split."""
-    dev = x.device
-    n, m = x.shape[0], y0.shape[0]
-    _check_cloud("fixed", x, fx, mx, n, dev)
-    _check_cloud("moving", y0, fy, my, m, dev)
+def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
+                  launch_info=None):
+    """One cooperative launch of csrc/align_fused.cu for `lanes` lanes:
+    y0/fy/my stacks of `lanes` moving clouds, x/fx/mx a stack of fixed
+    clouds or one fixed cloud of every lane, R0 (lanes, 3, 3), T0
+    (lanes, 3), ell0 (lanes,). Returns (out_f (lanes, 13): R, T, ell;
+    out_n (lanes, 2): iters, nnz)."""
+    dev = y0.device
+    n, m = x.shape[-2], y0.shape[1]
+    _check_lanes(lanes)
+    x_lane = _check_lane_cloud("fixed", x, fx, mx, lanes, n, dev)
+    _check_lane_cloud("moving", y0, fy, my, lanes, m, dev)
     _check_staged("moving", y0, fy, my)
-    _check("R0", R0, torch.float32, (3, 3), dev)
-    _check("T0", T0, torch.float32, (3,), dev)
+    _check("R0", R0, torch.float32, (lanes, 3, 3), dev)
+    _check("T0", T0, torch.float32, (lanes, 3), dev)
+    _check("ell0", ell0, torch.float32, (lanes,), dev)
     if len(p.ell_anneal_iters) != 3 or len(p.ell_anneal_values) != 3:
         raise ValueError("align_fused takes a 3-step ell anneal schedule")
-    init = torch.cat([R0.reshape(9), T0.reshape(3),
-                      _as_ell(ell0, dev).reshape(1)]).contiguous()
+    init = torch.cat([R0.reshape(lanes, 9), T0, ell0[:, None]],
+                     dim=1).contiguous()
     hf = (ctypes.c_float * 14)(
         pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
         2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d, p.eps,
@@ -809,26 +917,83 @@ def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
     info = (ctypes.c_int * 4)()
     plan, _, _ = _plan_for(ALIGN, "align_fused_geometry", n, m, dev)
     fn = _fn(ALIGN, "align_fused_launch",
-             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
                 ctypes.POINTER(ctypes.c_int)]
              + [ctypes.c_void_p] * 6
              + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-    bits, fpart, npart, spart = _scratch(plan, dev)
-    out_f = torch.empty((13,), dtype=torch.float32, device=dev)
-    out_n = torch.empty((2,), dtype=torch.int32, device=dev)
+    bits, fpart, npart, spart = _scratch(plan, dev, lanes=lanes)
+    out_f = torch.empty((lanes, 13), dtype=torch.float32, device=dev)
+    out_n = torch.empty((lanes, 2), dtype=torch.int32, device=dev)
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(y0), _ptr(fy), _ptr(my), n,
-             m, plan.chunks, plan.tiles_per_chunk, _ptr(init), hf, hi,
-             _ptr(bits), _ptr(fpart), _ptr(npart), _ptr(spart), _ptr(out_f),
-             _ptr(out_n), info, _stream(dev))
+             m, lanes, x_lane, plan.chunks, plan.tiles_per_chunk, _ptr(init),
+             hf, hi, _ptr(bits), _ptr(fpart), _ptr(npart), _ptr(spart),
+             _ptr(out_f), _ptr(out_n), info, _stream(dev))
     _raise_on(err, ALIGN.name)
-    ALIGN.count_launch()
     if launch_info is not None:
         launch_info.update(grid=info[0], blocks_per_sm=info[1], sms=info[2],
-                           items=info[3], chunks=plan.chunks,
+                           items=info[3], lanes=lanes, chunks=plan.chunks,
                            tiles_per_chunk=plan.tiles_per_chunk)
-    return (out_f[:9].reshape(3, 3), out_f[9:12], out_f[12], out_n[0],
-            out_n[1])
+    return out_f, out_n
+
+
+def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
+                     launch_info: dict | None = None):
+    """The cooperative align kernel: same function and tuple as
+    align_fused_plain, in one launch (the launch of one lane). A
+    `launch_info` dict receives the launch's grid, blocks per SM, SM count,
+    work items and the split."""
+    dev = x.device
+    _check_cloud("fixed", x, fx, mx, x.shape[0], dev)
+    _check_cloud("moving", y0, fy, my, y0.shape[0], dev)
+    _check("R0", R0, torch.float32, (3, 3), dev)
+    _check("T0", T0, torch.float32, (3,), dev)
+    out_f, out_n = _align_launch(
+        x, fx, mx, y0[None], fy[None], my[None], R0[None], T0[None],
+        _as_ell(ell0, dev).reshape(1), p, 1, launch_info)
+    ALIGN.count_launch()
+    return (out_f[0, :9].reshape(3, 3), out_f[0, 9:12], out_f[0, 12],
+            out_n[0, 0], out_n[0, 1])
+
+
+def align_fused_lanes_plain(x, fx, mx, y0, fy, my, R0, T0, ell0,
+                            p: CvoParams):
+    """The plain version of the align lanes: align_fused_plain lane by
+    lane, each output stacked on a leading lane axis."""
+    lanes = y0.shape[0]
+    ell0 = torch.as_tensor(ell0, dtype=torch.float32, device=y0.device)
+    outs = [align_fused_plain(*(_lane(t, l) for t in (x, fx, mx)), y0[l],
+                              fy[l], my[l], R0[l], T0[l], ell0[l], p)
+            for l in range(lanes)]
+    return tuple(torch.stack(v) for v in zip(*outs))
+
+
+def align_fused_lanes_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0,
+                           p: CvoParams, launch_info: dict | None = None):
+    """The cooperative align kernel over S lanes in one launch: same
+    function and tuple as align_fused_lanes_plain. A `launch_info` dict
+    receives the grid, blocks per SM, SMs, work items, lanes and the
+    split."""
+    lanes = y0.shape[0]
+    out_f, out_n = _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p,
+                                 lanes, launch_info)
+    ALIGN_LANES.count_launch()
+    return (out_f[:, :9].reshape(lanes, 3, 3), out_f[:, 9:12], out_f[:, 12],
+            out_n[:, 0], out_n[:, 1])
+
+
+def align_fused_lanes(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams):
+    """S align loops in one launch: lane l aligns y0/fy/my[l] (S, M, .)
+    against x/fx/mx[l] (S, N, .), or against one fixed cloud x/fx/mx
+    (N, .) of every lane, from (R0[l], T0[l], ell0[l]). A lane stops on its
+    own stop rule and stays frozen while the others run. Returns (R, T,
+    ell, iters, nnz), each with a leading lane axis."""
+    if y0.device.type == "cpu":
+        return align_fused_lanes_plain(x, fx, mx, y0, fy, my, R0, T0, ell0,
+                                       p)
+    if y0.device.type == "cuda":
+        return align_fused_lanes_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p)
+    raise ValueError(f"unsupported device {y0.device}")
 
 
 def align_fused(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams):

@@ -37,19 +37,34 @@ def _round_robin_pairs(n: int):
 
 @lru_cache(maxsize=None)
 def _round_index(n: int, device: torch.device):
-    """The schedule as (p, q) index tensors on `device`, made once."""
-    return tuple((torch.tensor([p for p, _ in pairs], device=device),
-                  torch.tensor([q for _, q in pairs], device=device))
-                 for pairs in _round_robin_pairs(n))
+    """The schedule on `device`, made once: per round the (p, q) index
+    tensors, and for every index its partner, its pair and the sign of its
+    partner's term in its rotated row (-1 for p, +1 for q)."""
+    rounds = []
+    for pairs in _round_robin_pairs(n):
+        partner, pair, sign = [0] * n, [0] * n, [0.0] * n
+        for k, (p, q) in enumerate(pairs):
+            partner[p], partner[q] = q, p
+            pair[p] = pair[q] = k
+            sign[p], sign[q] = -1.0, 1.0
+        rounds.append(tuple(torch.tensor(v, device=device) for v in (
+            [p for p, _ in pairs], [q for _, q in pairs], partner, pair,
+            sign)))
+    return tuple(rounds)
 
 
 def eigvalsh_jacobi(H, sweeps: int = 8):
-    """Eigenvalues (unsorted) of a symmetric (n, n) matrix, n small and even."""
-    n = H.shape[-1]
+    """Eigenvalues (unsorted) of symmetric (..., n, n) matrices, n small and
+    even. Each round applies its combined Givens rotation G (A <- G^T A G)
+    as the row, then the column mixing of its disjoint pairs, elementwise:
+    every entry is c a + s b with the entry and its partner's, whatever
+    the batch, so a stack of matrices gives each one's eigenvalues bit for
+    bit (a batched matrix product need not sum as the one-matrix product
+    does)."""
     A = (H + H.transpose(-1, -2)) * 0.5
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
     for _ in range(sweeps):
-        for ps, qs in _round_index(n, A.device):
+        for ps, qs, partner, pair, sign in _round_index(H.shape[-1],
+                                                         A.device):
             apq = A[..., ps, qs]
             app = A[..., ps, ps]
             aqq = A[..., qs, qs]
@@ -62,11 +77,11 @@ def eigvalsh_jacobi(H, sweeps: int = 8):
             s = t * c
             c = torch.where(small, torch.ones_like(c), c)
             s = torch.where(small, torch.zeros_like(s), s)
-            # combined Givens for the disjoint pairs of this round
-            G = eye.expand(A.shape).clone()
-            G[..., ps, ps] = c
-            G[..., qs, qs] = c
-            G[..., ps, qs] = s
-            G[..., qs, ps] = -s
-            A = G.transpose(-1, -2) @ A @ G
+            # G[p, p] = G[q, q] = c, G[p, q] = s, G[q, p] = -s: row p of
+            # G^T A is c A_p - s A_q, row q is c A_q + s A_p; the same for
+            # the columns of (G^T A) G
+            C = c[..., pair]
+            S = s[..., pair] * sign
+            A = C[..., :, None] * A + S[..., :, None] * A[..., partner, :]
+            A = A * C[..., None, :] + A[..., :, partner] * S[..., None, :]
     return torch.diagonal(A, dim1=-2, dim2=-1)
