@@ -3,6 +3,8 @@
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N   (a machine with N cards: phases 4b,
+                                       4h and 4i only, one shard per card)
 
 Phases; any failure exits non-zero:
   1. card and build: the card's name and power limit, torch.version.cuda,
@@ -59,6 +61,14 @@ Phases; any failure exits non-zero:
      flow and step_coeffs lie on no path (only the JAX package's tests
      call them): their launches are those of these checks, and each
      flow_and_step launch of the main path runs both passes once more;
+  2m. the sharded align (parallel.batch.make_sharded_align): SHARDED_LANES
+     lanes on the frame-0 cloud (the moving clouds frames 1 ..) over a
+     mesh of SHARDS shards on the one card, one align_fused_lanes launch
+     per shard (counters set to 0 just before, read just after): every
+     lane equal bit for bit to the same lane of one SHARDED_LANES-lane
+     launch; the shards' device ms beside the one launch's (the shards run
+     one after another on one card). Its launches and phase 4h's are added
+     to the kernels' main-path counts;
   3. tracking: tracking-only SLAM at 640x480 / CAP 3072 on a 16-frame
      synthetic sequence through app.run_slam.run(device="cuda"), with the
      launch counters set to 0 just before and read just after; checks one
@@ -123,15 +133,39 @@ Phases; any failure exits non-zero:
      length, under pallas with the default speculation: tracking and SLAM
      ATE under tests/test_eval.py's bars (SUITE_BARS); ATE, RPE, loops,
      fps and keyframe-path ms per sequence;
+  4h. mesh SLAM: the walk of phase 4b under pallas through
+     app.run_slam.run(mesh=<SHARDS shards on cuda:0>), the windowed BA on
+     parallel.sharded_ba and the final BA on parallel.sharded_lm: the
+     keyframe ids and timestamps and the accepted loop-closure edges of
+     phase 4b, keyframe positions within 1e-3 m (tests/test_mesh_slam.py's
+     bar), at least one sharded windowed BA and one sharded final BA, each
+     window's landmarks as in phase 4b; the windows' sizes and the
+     keyframe-path ms per stage beside phase 4b's;
+  4i. the solvers: eval.scaling.run_harness at its defaults (48 poses,
+     96 landmarks, 10 iterations, SCALING_REPEATS repeats) on 1, 2 and 4
+     shards of the card, dense and pcg, every row within 1e-4 of the
+     single-device solver; then 10 landmarks on 4 shards (4 does not
+     divide 10) against the single-device optimize_ba (poses rtol 1e-3 /
+     atol 1e-4, landmarks atol 1e-3);
+  4j. two processes: two gloo ranks, each with 2 shards on cuda:0, run the
+     sharded LM (parallel.multiprocess): the ranks equal bit for bit and
+     within the LM bars of the in-process 4-shard mesh;
+  4k. the device frontend (frontend.device.create_pointcloud_device) on
+     4 frames of the 640x480 sequence (CAP 3072), one ETH3D-shaped frame
+     (739x458, CAP 3000) and one frame with feature_type 0, against the
+     host create_pointcloud: count and pixel set exact, positions rtol
+     1e-5 / atol 1e-6, features rtol 1e-4 / atol 1e-3 (HSV one quantum on
+     H and S); ms per frame of both;
   5. one engine.frame_step under torch.profiler on each backend: device
      busy share, kernel launches per frame and per align iteration, and
      the device time by kernel name (top 10);
   6. a JSON line with every kernel's numbers, the run's seconds, the card
      line, and last {"ok": true, "device": {...}}.
 Each phase prints its wall time. No earlier phase is cut in depth: the
-whole run took 482-549 s of the 1200 s limit on an NVIDIA H100 80GB HBM3
-at 700.00 W (its largest parts are phase 4g's generation of 220 frames
-and phase 3e's lockstep runs, ~85 s).
+whole run took 662.2 s of the 1200 s limit on an NVIDIA H100 80GB HBM3
+at 700.00 W with phases 2m and 4h-4k (482-549 s before them; its largest
+parts are phase 4g's generation of 220 frames, ~200 s, and phase 3e's
+lockstep runs, ~85 s).
 
 The bound of a kernel is the larger of issued fp32 instructions / 33.5 T
 instructions/s (132 SMs x 128 lanes x 1.98 GHz on an H100 SXM at 700 W)
@@ -203,6 +237,12 @@ LOCKSTEP_SHORT = 8
 LOCKSTEP_STEPS = (None, (-0.003, 0.005, -0.002, -0.008, 0.009, -0.006),
                   (0.002, 0.003, -0.004, 0.006, 0.004, 0.010),
                   (0.005, -0.004, -0.003, 0.008, 0.007, -0.005))
+# phase 2m: lanes on the frame-0 cloud split over SHARDS shards of the one
+# card; phases 4h and 4i: the mesh of SHARDS shards, and the scaling
+# harness's repeats (best of, after one untimed call)
+SHARDED_LANES = 8
+SHARDS = 4
+SCALING_REPEATS = 3
 # kernels on no path of the JAX package (only its tests call them): their
 # launches are those of the phase-2 checks
 CHECK_ONLY = ("flow", "step_coeffs")
@@ -1369,13 +1409,16 @@ def loop_trajectory(n_out):
 
 
 def slam(folder, report, card, device="cuda", cam=None, cfg=None,
-         backend="pallas_mom", use_async=False, check_matcher=False):
+         backend="pallas_mom", use_async=False, check_matcher=False,
+         mesh=None):
     """Phases 4, 4b and 4d: the whole SLAM system on an out-and-back
     sequence on `backend` (with UseMultiThreading: the async backend),
     without speculation, counters set to 0 just before run() and read just
     after. With check_matcher, every device descriptor matching is held
     against the host match_bow on the same keyframes, byte for byte.
-    Returns run()'s stats and the keyframes as (id, timestamp, pose)."""
+    With `mesh` the windowed and final BA run on the sharded solvers.
+    Returns run()'s stats (with the launches and the windowed BAs' sizes)
+    and the keyframes as (id, timestamp, pose)."""
     import numpy as np
     from cvo_slam_tpu_torch.app import run_slam
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
@@ -1414,7 +1457,7 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             stats = run_slam.run(folder, "associate.txt", cam, cfg,
-                                 device=device)
+                                 device=device, mesh=mesh)
             # the whole call: the frame loop (wall_s), then the writers,
             # which wait for an async backend's backlog
             stats["run_s"] = time.perf_counter() - t0
@@ -1422,6 +1465,8 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
     finally:
         run_slam.build_tracker, matcher.fetch_match_bow = build, fetch
     graph = trackers[0].graph
+    stats["launches"] = launches
+    stats["wba_sizes"] = list(getattr(graph, "wba_sizes", []))
     keyframes = [(kf.id, kf.timestamp, kf.pose.copy())
                  for kf in graph.keyframes()]
     rounds = [(round(r["ransac"], 1), round(r["verify"], 1),
@@ -1438,7 +1483,8 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
         rows = [line.split() for line in f if line.strip()]
     stages = {k: round(v["mean"], 1)
               for k, v in stats.get("keyframe_path_ms", {}).items()}
-    mode = "async backend" if use_async else "synchronous backend"
+    mode = ("async backend" if use_async else "synchronous backend") + (
+        f", {mesh.size}-shard mesh" if mesh is not None else "")
     print(f"SLAM ({stats['backend']}, {mode}) {stats['frames']} frames "
           f"{cam.width}x{cam.height} CAP {cfg.frontend.cloud_capacity} on "
           f"{card}: {stats['keyframes']} keyframes, "
@@ -1626,7 +1672,321 @@ def suite(out_dir, card):
         raise AssertionError(f"suite launches {launches}")
 
 
-def main() -> int:
+# -- the mesh and the device frontend (phases 2m, 4h-4k) ---------------------
+
+def _align_fields_equal(got, want):
+    """The lanes whose outputs (every AlignResult field) differ."""
+    import torch
+    return [l for l in range(want[0].shape[0])
+            if not all(torch.equal(g[l], w[l]) for g, w in zip(got, want))]
+
+
+def sharded_align(seq, p, report, card):
+    """Phase 2m: SHARDED_LANES lanes on the shared frame-0 cloud split over
+    a mesh of SHARDS shards on the one card (parallel.batch.
+    make_sharded_align, one align_fused_lanes launch per shard), every lane
+    equal bit for bit to the same lane of one SHARDED_LANES-lane launch
+    (batched_align); counters set to 0 just before the sharded call and read
+    just after; device ms of the shards' launches beside the one launch."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import engine, kernels
+    from cvo_slam_tpu_torch.parallel import batch
+    from cvo_slam_tpu_torch.parallel.mesh import Mesh
+    dev = seq[0][0].device
+    S = SHARDED_LANES
+    args = (engine.PointCloud(*seq[0]),
+            engine.PointCloud(*_stack([seq[1 + l % ALIGN_PAIRS]
+                                       for l in range(S)])),
+            torch.eye(3, device=dev).expand(S, 3, 3).contiguous(),
+            torch.zeros(S, 3, device=dev),
+            torch.full((S,), ELLS[0], device=dev))
+    want = batch.batched_align(*args, p, backend="pallas")
+    mesh = Mesh.on_cards(SHARDS, dev, shared=True)
+    sharded = batch.make_sharded_align(mesh, p, backend="pallas")
+    kernels.reset_launch_counts()
+    got = sharded(*args)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    bad = _align_fields_equal(got, want)
+    t_sh, per_sh = device_profile(lambda: sharded(*args), ("align_kernel",),
+                                  reps=3)
+    t_one, per_one = device_profile(
+        lambda: batch.batched_align(*args, p, backend="pallas"),
+        ("align_kernel",), reps=3)
+    print(f"sharded align: {S} lanes on the frame-0 cloud over {SHARDS} "
+          f"shards on {card}: launches {launches}; lanes differing from the "
+          f"one {S}-lane launch: {bad}; iterations "
+          f"{[int(i) for i in got.iters]}; device {t_sh} ms in {per_sh} "
+          f"launches against {t_one} ms in {per_one} launch (the shards run "
+          f"one after another on the one card)", flush=True)
+    if bad or launches["align_fused_lanes"] != SHARDS or any(
+            n for k, n in launches.items() if k != "align_fused_lanes"):
+        raise AssertionError(f"sharded align: lanes {bad} differ, launches "
+                             f"{launches}")
+    # added to the main path's count after phase 3e sets it (main)
+    report["align_fused_lanes"]["sharded"] = dict(
+        lanes=S, shards=SHARDS, launches=launches["align_fused_lanes"],
+        device_ms=t_sh, launches_per_call=per_sh, one_launch_ms=t_one)
+
+
+def mesh_slam(folder, report, card, sync, mesh):
+    """Phase 4h: the walk of phase 4b under pallas through run_slam.run
+    with `mesh`: the keyframe ids and timestamps and the accepted
+    loop-closure edges of phase 4b's run `sync`, keyframe positions within
+    1e-3 m, at least one windowed BA through parallel.sharded_ba and the
+    final BA through parallel.sharded_lm, and each window's landmarks as in
+    phase 4b. Launches added to the report's counts."""
+    import numpy as np
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.parallel import sharded_ba, sharded_lm
+    calls = dict(sharded_ba=0, sharded_lm=0)
+    ba_fn, lm_fn = sharded_ba.optimize_ba_sharded, sharded_lm.optimize_sharded
+
+    def ba(*a, **k):
+        calls["sharded_ba"] += 1
+        return ba_fn(*a, **k)
+
+    def lm(*a, **k):
+        calls["sharded_lm"] += 1
+        return lm_fn(*a, **k)
+    sharded_ba.optimize_ba_sharded, sharded_lm.optimize_sharded = ba, lm
+    mesh.collectives = 0
+    try:
+        stats, kfs = slam(folder, report, card, backend="pallas", mesh=mesh)
+    finally:
+        sharded_ba.optimize_ba_sharded, sharded_lm.optimize_sharded = \
+            ba_fn, lm_fn
+    want_stats, want = sync
+    gap = max((float(np.abs(a[2][:3, 3] - b[2][:3, 3]).max())
+               for a, b in zip(kfs, want)), default=0.0)
+    windows = [(w[0], w[1], w[3]) for w in stats["wba_sizes"]]
+    want_windows = [(w[0], w[1], w[3]) for w in want_stats["wba_sizes"]]
+    stages = {k: round(v["mean"], 1)
+              for k, v in stats.get("keyframe_path_ms", {}).items()}
+    want_stages = {k: round(v["mean"], 1)
+                   for k, v in want_stats.get("keyframe_path_ms", {}).items()}
+    print(f"mesh SLAM ({mesh}) on {card}: {len(kfs)} keyframes (phase 4b "
+          f"{len(want)}), {stats['lc_num']} loop-closure edges (4b "
+          f"{want_stats['lc_num']}), max keyframe position gap {gap:.3e} m; "
+          f"sharded solver calls {calls}, {mesh.collectives} collectives; "
+          f"windows (poses, landmarks, projection edges) {windows} (4b "
+          f"{want_windows}); keyframe path ms per event by stage {stages} "
+          f"(4b {want_stages})", flush=True)
+    if [k[:2] for k in kfs] != [k[:2] for k in want] \
+            or stats["lc_num"] != want_stats["lc_num"] or not gap <= 1e-3:
+        raise AssertionError("mesh SLAM: keyframes, loop-closure edges or "
+                             "positions differ from phase 4b's")
+    if calls["sharded_ba"] < 1 or calls["sharded_lm"] != 1:
+        raise AssertionError(f"mesh SLAM: sharded solver calls {calls}")
+    if [w[1] for w in windows] != [w[1] for w in want_windows]:
+        raise AssertionError("mesh SLAM: the windows' landmarks differ from "
+                             "phase 4b's")
+    if not any(w[1] > 0 for w in want_windows):
+        raise AssertionError("mesh SLAM: no window of phase 4b carried "
+                             "landmarks, so the landmark-carrying sharded "
+                             "windowed BA did not run")
+    for name in ("align_fused", "ip_suite", "pair_stats"):
+        report[name]["launches"] += stats["launches"][name]
+    return stats
+
+
+def solvers(card, shards=(1, 2, 4), repeats=SCALING_REPEATS):
+    """Phase 4i: eval.scaling.run_harness at its defaults on the card
+    (shards round-robin over the cards), dense and pcg, every row within
+    1e-4 of the single-device solver; then a 10-landmark BA on 4 shards
+    (4 does not divide 10) against the single-device optimize_ba."""
+    import numpy as np
+    from cvo_slam_tpu_torch.eval import scaling
+    from cvo_slam_tpu_torch.parallel import sharded_ba
+    from cvo_slam_tpu_torch.parallel.mesh import Mesh
+    with tempfile.TemporaryDirectory(prefix="scaling_") as d:
+        t0 = time.perf_counter()
+        payload = scaling.run_harness(os.path.join(d, "scaling.json"),
+                                      repeats=repeats, shards=shards,
+                                      device="cuda")
+        wall = time.perf_counter() - t0
+    for bench in ("lm", "ba"):
+        b = payload[bench]
+        print(f"scaling {bench} {b['problem']} on {payload['card']} "
+              f"({payload['cards']} cards): single device "
+              f"{b['single_device_ms']:.2f} ms; " + "; ".join(
+                  f"{r['shards']} shards on {r['cards']} cards {r['solver']} "
+                  f"{r['ms_per_call']:.2f} ms, "
+                  f"{r['collectives_per_call']:.0f} collectives, |dE| "
+                  f"{r['max_abs_pose_delta']:.2e}"
+                  + (f", chi2 rel {r['chi2_rel_delta']:.2e}"
+                     if "chi2_rel_delta" in r else "")
+                  for r in b["shards"]), flush=True)
+        worst = max(r["max_abs_pose_delta"] for r in b["shards"])
+        if not worst <= 1e-4:
+            raise AssertionError(f"scaling {bench}: |dE| {worst} > 1e-4")
+    print(f"scaling harness: {wall:.1f} s (repeats {repeats})", flush=True)
+
+    prob, K = scaling.arc_ba_problem(np.random.default_rng(1), 24, 10)
+    E1, L1 = scaling.optimize_ba_single(prob, K, 10, 2.0, "cuda")
+    mesh = Mesh.on_cards(4, "cuda", shared=True)
+    for solver in ("dense", "pcg"):
+        sharded, perm, _ = sharded_ba.shard_ba_problem(
+            4, *(prob[k] for k in ("L0", "lm_mask", "p_kf", "p_lm", "p_meas",
+                                   "p_w", "p_mask", "ei", "ej", "Z", "omega",
+                                   "pemask")))
+        E2, Ls = sharded_ba.optimize_ba_sharded(prob["E0"], prob["free_pose"],
+                                                sharded, K, 10, 2.0, mesh,
+                                                solver=solver)
+        L2 = Ls.reshape(-1, 3).cpu().numpy()[np.argsort(perm)][:10]
+        dE = float(np.abs(E2.cpu().numpy() - E1.cpu().numpy()).max())
+        dL = float(np.abs(L2 - L1.cpu().numpy()).max())
+        print(f"10 landmarks on 4 shards ({solver}): |dE| {dE:.2e}, |dL| "
+              f"{dL:.2e} against the single device", flush=True)
+        np.testing.assert_allclose(E2.cpu().numpy(), E1.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(L2, L1.cpu().numpy(), rtol=1e-3,
+                                   atol=1e-3)
+    return payload
+
+
+def two_processes(card):
+    """Phase 4j: two gloo ranks, each with 2 shards on cuda:0, run the
+    sharded LM (parallel.multiprocess); the ranks agree bit for bit and
+    agree with the in-process 4-shard mesh within the LM bars."""
+    import numpy as np
+    from cvo_slam_tpu_torch.parallel import multiprocess
+    t0 = time.perf_counter()
+    (c0, E0), (c1, E1) = multiprocess.run_ranks(
+        world=2, shards_per_rank=2, device="cuda", timeout_s=300)
+    wall = time.perf_counter() - t0
+    c, E = multiprocess.single_process(4, device="cuda")
+    print(f"two processes (gloo, 2 shards each on cuda:0 of {card}): chi2 "
+          f"{c0!r} / {c1!r}, poses bitwise equal: {np.array_equal(E0, E1)}; "
+          f"in-process 4 shards chi2 {c!r}, |dE| "
+          f"{float(np.abs(E0 - E).max()):.2e}; {wall:.1f} s", flush=True)
+    if c0 != c1 or not np.array_equal(E0, E1):
+        raise AssertionError("the two ranks disagree")
+    np.testing.assert_allclose(c0, c, rtol=1e-3)
+    np.testing.assert_allclose(E0, E, rtol=1e-3, atol=1e-4)
+
+
+def device_frontend(folder, card, n_frames=4):
+    """Phase 4k: frames of the 640x480 sequence (CAP 3072) and one
+    ETH3D-shaped frame (739x458, CAP 3000) through
+    frontend.device.create_pointcloud_device on the card against the host
+    create_pointcloud: count and pixel set exact, positions rtol 1e-5 /
+    atol 1e-6, features rtol 1e-4 / atol 1e-3 (HSV: one quantum on H and
+    S); ms per frame of both frontends."""
+    import numpy as np
+    import torch
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS, FrontendParams
+    from cvo_slam_tpu_torch.data import synthetic, tum
+    from cvo_slam_tpu_torch.frontend.device import create_pointcloud_device
+    from cvo_slam_tpu_torch.frontend.pointcloud import create_pointcloud
+
+    def frames(fold):
+        return [tum.load_image(fold, r) for r in tum.load_association(
+            os.path.join(fold, "associate.txt"))[:n_frames]]
+
+    eth_dir = os.path.join(folder, "eth3d")
+    eth = CAMERA_PRESETS["ETH3D_1"]
+    synthetic.make_sequence(eth_dir, eth, n_frames=1)
+    cases = [(CAMERA_PRESETS["TUM1"], FrontendParams(cloud_capacity=3072),
+              im) for im in frames(folder)]
+    cases.append((eth, FrontendParams(num_want=3000, cloud_capacity=3000),
+                  frames(eth_dir)[0]))
+    cases.append((CAMERA_PRESETS["TUM1"],
+                  FrontendParams(cloud_capacity=3072, feature_type=0),
+                  cases[0][2]))
+    t_host, t_dev = {}, {}
+    for k, (cam, fp, im) in enumerate(cases):
+        args = (im.bgr, im.gray, im.depth, cam, fp)
+        create_pointcloud_device(*args, device="cuda")      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = create_pointcloud_device(*args, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = create_pointcloud(*args)
+        t2 = time.perf_counter()
+        key = f"{cam.width}x{cam.height} CAP {fp.cloud_capacity}" + (
+            " HSV" if fp.feature_type == 0 else "")
+        t_dev.setdefault(key, []).append((t1 - t0) * 1e3)
+        t_host.setdefault(key, []).append((t2 - t1) * 1e3)
+        pos, feat, mask, count, pix = (t.cpu().numpy() for t in got)
+        n = host.count
+        if int(count) != n or not mask[:n].all() or mask[n:].any():
+            raise AssertionError(f"device frontend {key} frame {k}: count "
+                                 f"{int(count)}, host {n}")
+        want = {tuple(p): i for i, p in
+                enumerate(host.selected_pixels[:n].tolist())}
+        idx = [want.get(tuple(p), -1) for p in pix[:n].tolist()]
+        if sorted(idx) != list(range(n)):
+            raise AssertionError(f"device frontend {key} frame {k}: the "
+                                 f"selected pixels differ from the host's")
+        np.testing.assert_allclose(pos[:n], host.positions[idx], rtol=1e-5,
+                                   atol=1e-6)
+        if fp.feature_type == 0:
+            d = np.abs(feat[:n] - host.features[idx])
+            if (d[:, 0] > 1 / 180 + 1e-6).any() or \
+                    (d[:, 1] > 1 / 255 + 1e-6).any():
+                raise AssertionError("device frontend HSV: more than one "
+                                     "quantum on H or S")
+            np.testing.assert_allclose(feat[:n, 2:], host.features[idx, 2:],
+                                       rtol=1e-4, atol=1e-4)
+        else:
+            np.testing.assert_allclose(feat[:n], host.features[idx],
+                                       rtol=1e-4, atol=1e-3)
+    times = "; ".join(f"{k} {np.median(t_dev[k]):.2f} / "
+                      f"{np.median(t_host[k]):.2f} ({len(t_dev[k])} frames)"
+                      for k in t_dev)
+    print(f"device frontend on {card}: counts, pixel sets, positions and "
+          f"features as the host's; ms per frame (device / host): {times}",
+          flush=True)
+    return {k: dict(device_ms=float(np.median(t_dev[k])),
+                    host_ms=float(np.median(t_host[k]))) for k in t_dev}
+
+
+def multi_card(cards: int) -> int:
+    """`--cards N`: phases 4h and 4i with one shard per card on a machine
+    with N cards: the walk of phase 4b on cuda:0, then again with the
+    windowed and final BA on a mesh over cuda:0 .. N-1 (run_slam's
+    --mesh N), and the scaling harness on 1, 2 and N shards, one per
+    card."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import cuda_build, kernels
+    from cvo_slam_tpu_torch.parallel.mesh import Mesh
+    if torch.cuda.device_count() < cards:
+        return fail(f"--cards {cards}: the machine has "
+                    f"{torch.cuda.device_count()} cards")
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.device_count()} cards: "
+          f"{[torch.cuda.get_device_name(i) for i in range(cards)]}",
+          flush=True)
+    cuda_build.build_all()
+    report = {k.name: dict(name=k.name, launches=0) for k in kernels.KERNELS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as folder:
+        with phase("4b"):
+            sync = slam(os.path.join(folder, "slam"), report, card,
+                        backend="pallas")
+        with phase(f"4h on {cards} cards"):
+            mesh_slam(os.path.join(folder, "slam"), report, card, sync,
+                      Mesh.on_cards(cards, "cuda"))
+        with phase(f"4i on {cards} cards"):
+            solvers(card, shards=(1, 2, cards))
+    print(f"chip_smoke --cards {cards}: {time.perf_counter() - t_start:.1f} "
+          f"s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="chip smoke run of the port")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="with N > 1: only phases 4h and 4i, one shard per "
+                         "card of N")
+    args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "cvo_slam_tpu_torch")):
         return fail("cvo_slam_tpu_torch/ not found beside chip_smoke.py: run "
                     "from the root of a checkout")
@@ -1636,9 +1996,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this run needs a "
                     "CUDA card")
+    if args.cards > 1:
+        return multi_card(args.cards)
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
     from cvo_slam_tpu_torch.cvo import cuda_build, kernels
     from cvo_slam_tpu_torch.data import synthetic
+    from cvo_slam_tpu_torch.parallel.mesh import Mesh
 
     # -- phase 1: card and build
     t_start = time.perf_counter()
@@ -1678,6 +2041,8 @@ def main() -> int:
             seq = sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1)
             align_checks(seq, p, report)
             lane_checks(seq, p, report)
+        with phase("2m"):
+            sharded_align(seq, p, report, card)
             del seq
 
         # -- phase 3: tracking-only SLAM through the CLI's run() on each
@@ -1743,10 +2108,21 @@ def main() -> int:
             resume(folder, card)
         with phase("4g"):
             suite(os.path.join(folder, "suite"), card)
+        with phase("4h"):
+            mesh_slam(os.path.join(folder, "slam"), report, card, s_fused,
+                      Mesh.on_cards(SHARDS, "cuda", shared=True))
+        with phase("4i"):
+            solvers(card)
+        with phase("4j"):
+            two_processes(card)
+        with phase("4k"):
+            device_frontend(folder, card)
         with phase("5"):
             for backend in ("pallas_mom", "pallas", "pallas_iter"):
                 profile_frame(clouds, p, backend)
 
+    report["align_fused_lanes"]["launches"] += \
+        report["align_fused_lanes"]["sharded"]["launches"]
     for entry in report.values():
         if entry["launches"] <= 0:
             return fail(f"{entry['name']} was not launched " + (

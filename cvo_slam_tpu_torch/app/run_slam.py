@@ -4,15 +4,16 @@
 Loads the association file, streams frames through the KeyframeTracker,
 writes Tracking_trajectory.txt per frame (run_SLAM.cpp:83-86) and, unless
 OnlyTracking, SLAM_trajectory.txt + loop_closure.txt at the end (:91-98).
-Per-frame metrics go to metrics.jsonl. On one device: UseMultiThreading
-runs the backend on a worker thread (parallel.async_backend); --mesh (the
-sharded backend solvers) raises NotImplementedError.
+Per-frame metrics go to metrics.jsonl. UseMultiThreading runs the backend
+on a worker thread (parallel.async_backend); --mesh N runs the windowed and
+the final BA on the sharded solvers (parallel.sharded_ba / sharded_lm) over
+N shards: one per card on cuda, N on the CPU with --device cpu.
 
 Usage:
   python -m cvo_slam_tpu_torch.app.run_slam --folder <seq_dir> \
       [--association associate.txt] [--camera TUM1] [--config config.txt] \
       [--only-tracking] [--max-frames N] [--vocabulary ORBvoc.txt] \
-      [--profile-dir DIR] [--device cuda]
+      [--profile-dir DIR] [--mesh N] [--device cuda]
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..data.prefetch import FramePrefetcher
 from ..device import resolve_device
 from ..features.orb import keyframe_feature_hook
 from ..parallel.async_backend import AsyncKeyframeGraph
+from ..parallel.mesh import Mesh
 from ..tracking.keyframe_tracker import KeyframeTracker
 
 log = logging.getLogger(__name__)
@@ -60,24 +62,26 @@ def start_warmup(device):
 
 
 def build_tracker(cam, cfg, verbose=False, device="cuda",
-                  vocabulary_path: str = "", mesh_devices: int = 0):
+                  vocabulary_path: str = "", mesh_devices: int = 0,
+                  mesh: Mesh = None):
     """The KeyframeTracker with, unless OnlyTracking, the backend graph:
     ORB + BoW keyframe features, loop-closure detection, windowed BA, the
     final all-keyframe BA and frame-list refinement, all on `device`;
-    with UseMultiThreading the graph runs on a worker thread."""
-    if mesh_devices:
-        raise NotImplementedError(
-            "--mesh (the sharded backend solvers) is not ported yet (ROADMAP "
-            "queue 1)")
+    with UseMultiThreading the graph runs on a worker thread. With `mesh`
+    (or mesh_devices, a mesh of that many shards, one per card:
+    Mesh.on_cards) the windowed and the final BA run on the sharded
+    solvers."""
     if cfg.OnlyTracking:
         return KeyframeTracker(cam, cfg, verbose=verbose, device=device)
+    if mesh is None and mesh_devices:
+        mesh = Mesh.on_cards(mesh_devices, device)
     feature_hook = keyframe_feature_hook(cam, cfg, vocabulary_path)
     graph = KeyframeGraph(
         cam, cfg,
         loop_detector=make_loop_detector(cam, cfg, feature_hook.voc),
-        windowed_ba=make_windowed_ba(cam, cfg, device),
+        windowed_ba=make_windowed_ba(cam, cfg, device, mesh=mesh),
         log=print if verbose else None, device=device,
-        keyframe_bow=feature_hook.bow)
+        keyframe_bow=feature_hook.bow, mesh=mesh)
     if cfg.UseMultiThreading:
         # working replacement for the reference's broken TBB pipeline
         # (keyframe_graph.cpp:2091-2095): the backend consumes completed
@@ -105,13 +109,14 @@ def _stage_stats(rows, per_event: bool):
 def run(folder: str, association: str, cam_name, cfg: SlamConfig,
         max_frames: int = 0, verbose: bool = False, device="cuda",
         vocabulary_path: str = "", mesh_devices: int = 0,
-        profile_dir: str = ""):
+        profile_dir: str = "", mesh: Mesh = None):
     """cam_name: a preset key (e.g. "TUM1") or a CameraConfig instance.
     The align backend comes from CVO_SLAM_BACKEND (engine.default_backend).
     Returns run statistics (frames, wall_s, fps, update_total_s, the align
     backend and, with the SLAM backend, keyframes, keyframe_path_ms per
     stage and lc_stage_ms per loop-closure sub-stage, all in ms per
-    event). With profile_dir, the frame loop runs under torch.profiler and
+    event). mesh_devices / mesh: see build_tracker. With profile_dir, the
+    frame loop runs under torch.profiler and
     its trace is written to profile_dir/trace.json (chrome trace format)."""
     device = resolve_device(device)
     cam = (cam_name if isinstance(cam_name, CameraConfig)
@@ -121,7 +126,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
         records = records[:max_frames]
 
     tracker = build_tracker(cam, cfg, verbose, device, vocabulary_path,
-                            mesh_devices)
+                            mesh_devices, mesh)
     start_warmup(device)
     tracker.init()
     backend = tracker.lt.cvo_odometry.backend   # CVO_SLAM_BACKEND
@@ -219,8 +224,9 @@ def main(argv=None):
                     help="write a torch.profiler trace of the frame loop "
                          "here (trace.json, chrome trace format)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="sharded backend solvers over N devices (not "
-                         "ported yet: raises)")
+                    help="run the windowed and the final BA on the sharded "
+                         "solvers over N shards (one per card; on the CPU "
+                         "with --device cpu)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")

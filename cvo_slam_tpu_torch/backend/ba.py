@@ -1,5 +1,5 @@
 """Windowed bundle adjustment: poses + landmarks with Schur marginalization
-(port of cvo_slam_tpu.backend.ba, single device).
+(port of cvo_slam_tpu.backend.ba).
 
 Re-expression of reference bundleAdjustmentForCurrentKeyframe
 (reference src/keyframe_graph.cpp:928-1243): the window spans from the
@@ -320,9 +320,12 @@ def _select_caps(n_v, n_l, n_pe, n_pr):
             max(_pad_bucket(n_pe), 64), max(_pad_bucket(n_pr), 2048))
 
 
-def make_windowed_ba(cam: CameraConfig, cfg: SlamConfig, device="cuda"):
+def make_windowed_ba(cam: CameraConfig, cfg: SlamConfig, device="cuda",
+                     mesh=None):
     """Windowed-BA closure (keyframe_graph.cpp:928-1243) solving on
-    `device`."""
+    `device`, or with `mesh` (a parallel.mesh.Mesh) on the distributed
+    Schur solver (parallel.sharded_ba, pcg): landmarks and their
+    projection edges sharded by owner, the pose system psummed."""
     dev = resolve_device(device)
     K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
@@ -442,15 +445,30 @@ def make_windowed_ba(cam: CameraConfig, cfg: SlamConfig, device="cuda"):
         # assembly is O(V^2 L))
         ba_solver = "pcg" if cap_v >= 96 else "dense"
 
+        def solve_stage(iters):
+            if mesh is None:
+                return optimize_ba(*args, Kt, iters, delta, solver=ba_solver)
+            # imported here: parallel.sharded_ba builds on this module
+            from ..parallel import sharded_ba
+            (E_h, L_h, free_h, lmm_h, ei_h, ej_h, Z_h, om_h, pem_h, pkf_h,
+             plm_h, pmeas_h, pw_h, pmask_h) = [a.cpu().numpy() for a in args]
+            sharded, perm, _ = sharded_ba.shard_ba_problem(
+                mesh.size, L_h, lmm_h, pkf_h, plm_h, pmeas_h, pw_h, pmask_h,
+                ei_h, ej_h, Z_h, om_h, pem_h, bucket_edges=True)
+            E_opt, L_sh = sharded_ba.optimize_ba_sharded(
+                E_h, free_h, sharded, K, iters, delta, mesh, solver="pcg")
+            L_opt = L_sh.reshape(-1, 3)[torch.as_tensor(
+                np.argsort(perm), device=L_sh.device)]
+            return E_opt.to(dev), L_opt[:cap_l].to(dev)
+
         # stage 1: 5 iterations, prune, then the full run + second prune;
         # both prunes gated on OptimizationRemoveOutliers (default True =
         # the reference, which prunes unconditionally)
-        E1, L1 = optimize_ba(*args, Kt, 5, delta, solver=ba_solver)
+        E1, L1 = solve_stage(5)
         args[0], args[1] = E1, L1
         if cfg.OptimizationRemoveOutliers:
             prune(E1, L1)
-        E2, L2 = optimize_ba(*args, Kt, cfg.OptimizationIterations, delta,
-                             solver=ba_solver)
+        E2, L2 = solve_stage(cfg.OptimizationIterations)
         args[0], args[1] = E2, L2
         if cfg.OptimizationRemoveOutliers:
             prune(E2, L2)

@@ -1,5 +1,5 @@
 """Global backend: keyframe pose graph + final BA
-(port of cvo_slam_tpu.backend.keyframe_graph, single device).
+(port of cvo_slam_tpu.backend.keyframe_graph).
 
 Re-expression of reference KeyframeGraph
 (reference src/keyframe_graph.cpp, class KeyframeGraphImpl):
@@ -17,7 +17,8 @@ Re-expression of reference KeyframeGraph
   * bundleAdjustmentForAllKeyframes (:1267-1431): in the reference's active
     code this is pose-graph-only: all keyframes, first fixed, every
     relative-pose edge with a Cauchy kernel, FinalOptimizationIterations LM
-    iterations on backend.lm.
+    iterations on backend.lm, or with a `mesh` on the edge-sharded
+    solver (parallel.sharded_lm).
   * refine_frame_lists (an extension over the reference): every local map
     re-optimized with both endpoint keyframes pinned, in one batched LM
     call.
@@ -42,6 +43,7 @@ import numpy as np
 
 from ..config import CameraConfig, SlamConfig
 from ..device import resolve_device
+from ..parallel import sharded_lm
 from ..tracking.local_map import MAX_EDGES, MAX_VERTS, LocalMap
 from ..tracking.types import Frame, Keyframe, TrackingResult
 from . import lm
@@ -70,13 +72,18 @@ class KeyframeGraph:
                  loop_detector: Optional[Callable] = None,
                  windowed_ba: Optional[Callable] = None,
                  log: Optional[Callable[[str], None]] = None,
-                 device="cuda", keyframe_bow: Optional[Callable] = None):
+                 device="cuda", keyframe_bow: Optional[Callable] = None,
+                 mesh=None):
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loop_detector = loop_detector
         self.windowed_ba = windowed_ba
         self.keyframe_bow = keyframe_bow
+        # with a parallel.mesh.Mesh the final all-keyframe BA runs on the
+        # edge-sharded pcg solver; the windowed BA is routed by
+        # make_windowed_ba
+        self.mesh = mesh
         self._keyframes: List[Keyframe] = []
         self.edges: List[GraphEdge] = []
         self.lc_num = 0
@@ -249,8 +256,13 @@ class KeyframeGraph:
         g = lm.pose_graph(E, np.arange(cap_v) == 0, np.arange(cap_v) < n,
                           ei, ej, Z, om, np.arange(cap_e) < len(self.edges),
                           device=self.device)
-        E_opt, _ = lm.optimize(g, self.cfg.FinalOptimizationIterations,
-                               robust_delta=self._delta)
+        if self.mesh is not None:
+            E_opt, _ = sharded_lm.optimize_sharded(
+                g, self.mesh, self.cfg.FinalOptimizationIterations,
+                robust_delta=self._delta, solver="pcg")
+        else:
+            E_opt, _ = lm.optimize(g, self.cfg.FinalOptimizationIterations,
+                                   robust_delta=self._delta)
         E_opt = E_opt.cpu().numpy().astype(np.float64)
         for k, kf in enumerate(self._keyframes):
             if kf.id == 0:

@@ -13,10 +13,11 @@ keyframe_tracker.cpp:233-317 in the reference).
 CLI:
   python -m cvo_slam_tpu_torch.eval.suite --out DIR [--scale 0.5]
       [--seq loop_120 fast_rotation_100 ...] [--results-md RESULTS.md]
-      [--async] [--device cuda]
+      [--async] [--mesh N] [--device cuda]
 
-Writes DIR/results.json and optionally a markdown report. --mesh (the
-sharded backend solvers) is not ported and raises NotImplementedError.
+Writes DIR/results.json and optionally a markdown report. --mesh N runs the
+windowed and the final BA on the sharded solvers over N shards
+(app.run_slam's --mesh).
 """
 
 from __future__ import annotations
@@ -236,8 +237,9 @@ def main(argv=None):
                     help="run the backend on the async pipeline "
                          "(UseMultiThreading replacement)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="sharded backend solvers over N devices (not "
-                         "ported yet: raises)")
+                    help="run the windowed and the final BA on the sharded "
+                         "solvers over N shards (one per card; on the CPU "
+                         "with --device cpu)")
     args = ap.parse_args(argv)
     payload = run_suite(args.out, args.scale, args.camera, args.seq,
                         verbose=args.verbose, use_async=args.use_async,

@@ -6,15 +6,14 @@ semantics: a lane that has stopped is frozen while the others iterate).
 The JAX package vmaps engine.align; the port writes the lane axis out:
 under 'pallas' the S align loops are the lanes of one align_fused launch
 (cvo.kernels.align_fused_lanes), one CUDA kernel for the whole batch.
-
-The mesh-sharded variant (the JAX package's make_sharded_align) needs a
-device mesh and is not ported yet (ROADMAP queue 1).
+make_sharded_align splits the lanes over the shards of a mesh.
 """
 
 from __future__ import annotations
 
 from ..config import CvoParams
 from ..cvo import engine
+from .mesh import Mesh
 
 
 def _batch_backend(backend: str) -> str:
@@ -46,3 +45,37 @@ def batched_align(fixed: engine.PointCloud, moving: engine.PointCloud, R0,
         fixed if shared else engine.unstack_clouds(fixed),
         engine.unstack_clouds(moving), R0, T0, ell0, p, backend,
         moving_stacked=moving, fixed_stacked=fixed)
+
+
+def make_sharded_align(mesh: Mesh, p: CvoParams, backend: str = "auto"):
+    """batched_align with the lanes split over `mesh`: S lanes (S a
+    multiple of the shard count) in contiguous blocks, one per shard; each
+    shard runs batched_align on its block on its device (under 'pallas' one
+    align_fused_lanes launch), and the results are gathered on
+    mesh.device. Each lane equals batched_align's lane bit for bit. The
+    returned fn takes (fixed, moving, R0, T0, ell0) as batched_align
+    does."""
+
+    def fn(fixed, moving, R0, T0, ell0):
+        S = moving.positions.shape[0]
+        if S % mesh.size:
+            raise ValueError(f"{S} lanes do not split over {mesh.size} "
+                             f"shards")
+        per = S // mesh.size
+        shared = fixed.positions.dim() == 2
+        outs = []
+        for s in mesh.local_shards:
+            dev, sl = mesh.devices[s], slice(s * per, (s + 1) * per)
+
+            def part(t):
+                return t[sl].to(dev)
+            f = engine.PointCloud(*(t.to(dev) if shared else part(t)
+                                    for t in fixed))
+            m = engine.PointCloud(*(part(t) for t in moving))
+            with mesh.on(s):
+                outs.append(batched_align(f, m, part(R0), part(T0),
+                                          part(ell0), p, backend))
+        return engine.AlignResult(*(mesh.gather([o[k] for o in outs])
+                                    for k in range(len(outs[0]))))
+
+    return fn

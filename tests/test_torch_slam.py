@@ -154,12 +154,22 @@ def test_run_slam_backend_stats(runs):
 
 @pytest.mark.parametrize("option", ["mesh", "multithreading"])
 def test_run_slam_unported_options_raise(option):
-    """The sharded solvers are not ported: asking for them raises instead
-    of running something else, alone and with the async backend
-    (UseMultiThreading, ported since)."""
+    """--mesh is ported: mesh_devices=2 with device="cpu" puts the windowed
+    and the final BA on a 2-shard CPU mesh, alone and with the async
+    backend (UseMultiThreading); a mesh asked for on cuda with more
+    shards than the machine has cards raises instead of running something
+    else (tests/test_torch_mesh_slam.py runs the mesh end to end)."""
     from cvo_slam_tpu_torch.app import run_slam as trun
     cam, cfg = from_reference(CAM), from_reference(CFG)
     if option == "multithreading":
         cfg = cfg.replace(UseMultiThreading=True)
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        trun.build_tracker(cam, cfg, device="cpu", mesh_devices=2)
+    tracker = trun.build_tracker(cam, cfg, device="cpu", mesh_devices=2)
+    graph = tracker.graph
+    try:
+        assert graph.mesh.size == 2 and graph.mesh.device.type == "cpu"
+    finally:
+        if option == "multithreading":
+            graph.close()
+    with pytest.raises(RuntimeError):
+        trun.build_tracker(cam, cfg, device="cuda",
+                           mesh_devices=torch.cuda.device_count() + 1)

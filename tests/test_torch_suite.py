@@ -91,12 +91,23 @@ def test_render_markdown_matches_jax():
     assert tsuite.render_markdown(payload) == jsuite.render_markdown(payload)
 
 
-def test_suite_cli_mesh_raises(tmp_path):
-    """--mesh (the sharded backend solvers) is the next slice: the CLI
-    raises instead of running something else."""
-    with pytest.raises(NotImplementedError, match="--mesh"):
+def test_suite_cli_mesh_raises(tmp_path, monkeypatch):
+    """--mesh is ported: the CLI hands it to run_slam.run, and a mesh
+    asked for on cuda with more shards than the machine has cards raises
+    instead of running something else (tests/test_torch_mesh_slam.py runs
+    the mesh end to end on the CPU)."""
+    from cvo_slam_tpu_torch.app import run_slam
+    seen, real = [], run_slam.run
+
+    def spy(*args, **kw):
+        seen.append(kw["mesh_devices"])
+        return real(*args, **kw)
+    monkeypatch.setattr(run_slam, "run", spy)
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError):
         tsuite.main(["--out", str(tmp_path), "--scale", "0.25", "--seq",
-                     "loop_120", "--mesh", "2", "--device", "cpu"])
+                     "loop_120", "--mesh", str(n), "--device", "cuda"])
+    assert seen == [n]
 
 
 # -- the challenge-mode gates of tests/test_eval.py, through the port --------
