@@ -5,6 +5,7 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_compare.py e2e ROOT
     python3 chip_compare.py kernels ROOT [ROOT2]
     python3 chip_compare.py speculation ROOT
+    python3 chip_compare.py xla ROOT
 
 e2e: chip_smoke.py's end-to-end phases on the package under ROOT: tracking
 under pallas (16 frames) and pallas_iter (8 frames), each with its
@@ -46,6 +47,16 @@ speculation: chip_smoke's tracking phase (16 frames; pallas_iter 8) on
 each backend with CVO_SLAM_SPECULATE=0, 1, 1, 0 in turns: ms/frame and the
 speculation's hits, misses and discards per run, and whether the runs of a
 backend wrote the same trajectory, line for line.
+
+xla: the device times of the xla align backend (plain torch and one cuBLAS
+product per iteration; no kernel of the port) beside the moment kernel's,
+on chip_smoke's frames 0 -> 1 at CAP 3072, both ells: ms per call (CUDA
+events) and the device ms and device operations of one call in one
+torch.profiler window, for the kernel matrix with the moment product, the
+whole xla pass, the moment kernel, and the moment kernel with its
+epilogue; then chip_smoke's six frame pairs as the lanes of one xla lane
+program against the six solo aligns, one call each: wall ms, device ms,
+device operations and their count per lane-iteration.
 
 Each mode prints a result line per phase and exits non-zero without a CUDA
 card.
@@ -373,6 +384,73 @@ def kernels_mode(root: str, dump: str = "") -> int:
     return 0
 
 
+def xla_mode(root: str) -> int:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    cs = _chip_smoke()
+    import torch
+    from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
+    from cvo_slam_tpu_torch.cvo import cuda_build, engine, kernels
+    from cvo_slam_tpu_torch.data import synthetic
+    from cvo_slam_tpu_torch.ops import pairwise
+    if not kernels.__file__.startswith(root):
+        raise RuntimeError(f"imported {kernels.__file__}, not under {root}")
+    cuda_build.build_all()
+    card = cs.card_line()
+    cam, p = CAMERA_PRESETS["TUM1"], SlamConfig.default_shipped().cvo
+    with tempfile.TemporaryDirectory(prefix="chip_compare_") as folder:
+        synthetic.make_sequence(folder, cam, n_frames=cs.ALIGN_PAIRS + 1)
+        clouds = cs.sequence_clouds(folder, cam, cs.CAPS[0],
+                                    cs.ALIGN_PAIRS + 1)
+    (x, fx, mx), (y, fy, my) = clouds[:2]
+    center, U = pairwise.step_moment_basis(x, mx)
+    U = U.contiguous()
+    ckg = pairwise.color_kernel_gated(fx, fy, mx, my, p)
+    for ell_v in cs.ELLS:
+        ell = torch.tensor(ell_v, device="cuda")
+
+        def dense():
+            A, keep = pairwise.cvo_kernel_from_color(x, y, ckg, ell, p)
+            return pairwise.moment_product(A, U), torch.sum(keep)
+
+        for name, fn in (
+                ("kernel matrix + moment product (xla)", dense),
+                ("xla pass", lambda: pairwise.flow_and_step_moments_lanes(
+                    x, y, ckg, U, center, ell, p)),
+                ("moment kernel", lambda: kernels.moment_pass(
+                    x, y, fx, fy, mx, my, U, ell, p)),
+                ("moment kernel + epilogue (pallas_mom)",
+                 lambda: kernels.moment_flow_step(x, y, fx, fy, mx, my, U,
+                                                  center, ell, p))):
+            t = cs.cuda_time_ms(fn, reps=5, trials=3)
+            d, n = cs._device_once(fn)
+            print(f"{name}, CAP {cs.CAPS[0]} ell {ell_v} on {card}: "
+                  f"{t:.4f} ms per call, device {d} ms in {n} device "
+                  f"operations (one call)", flush=True)
+    S, dev = cs.ALIGN_PAIRS, x.device
+    cl = [engine.PointCloud(*c) for c in clouds]
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    ell0 = torch.tensor(cs.ELLS[0], device=dev)
+
+    def solos():
+        return [engine.align(cl[k], cl[k + 1], eye, zero, ell0, p, "xla")
+                for k in range(S)]
+
+    def lanes():
+        return engine.align_lanes(cl[:S], cl[1:S + 1], [eye] * S,
+                                  [zero] * S, [ell0] * S, p, "xla")
+
+    lane_iters = sum(int(r.iters) + 1 for r in solos())
+    for name, fn in (("lanes", lanes), ("solo aligns", solos)):
+        w = cs._wall_ms(fn)
+        d, n = cs._device_once(fn)
+        print(f"xla, frames 0 -> 1 .. {S - 1} -> {S} as {S} {name} on "
+              f"{card}: {w:.1f} ms, device {d} ms in {n} device operations "
+              f"({n / lane_iters:.1f} per lane-iteration, {lane_iters})",
+              flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -389,6 +467,8 @@ def main() -> int:
         return kernels_mode(sys.argv[2], sys.argv[4])
     if sys.argv[1:2] == ["speculation"] and len(sys.argv) == 3:
         return speculation_mode(sys.argv[2])
+    if sys.argv[1:2] == ["xla"] and len(sys.argv) == 3:
+        return xla_mode(sys.argv[2])
     print(__doc__, file=sys.stderr)
     return 2
 

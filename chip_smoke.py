@@ -69,6 +69,21 @@ Phases; any failure exits non-zero:
      launch; the shards' device ms beside the one launch's (the shards run
      one after another on one card). Its launches and phase 4h's are added
      to the kernels' main-path counts;
+  2x. the xla align (engine.align(..., "xla"): the JAX package's dense
+     moment-form pass, plain torch and one torch.mm per iteration, no hand
+     kernel, as the JAX package computes it outside Pallas) on frames
+     0 -> 1 .. 5 -> 6 from the identity at ell 0.15: finite, within
+     XLA_PAIRS_GAP m / rad of the pallas_mom align on the same pair (the
+     iterations printed beside the pallas_mom align's); one pass on
+     frames 0 -> 1 at both ells against the same function on the CPU
+     (keep bit for bit, Mom, omega, v, B, C at phase 2's bars); the six
+     pairs as the lanes of one
+     lane program (engine.align_lanes), on distinct fixed clouds and on the
+     frame-0 cloud, every lane equal to its solo align bit for bit; no
+     kernel launched and no plain version of one run (counters set to 0
+     just before, read just after); the wall ms of the six lanes (and
+     their peak memory) against the six solo aligns'. chip_compare.py xla
+     gives the device times;
   3. tracking: tracking-only SLAM at 640x480 / CAP 3072 on a 16-frame
      synthetic sequence through app.run_slam.run(device="cuda"), with the
      launch counters set to 0 just before and read just after; checks one
@@ -78,6 +93,9 @@ Phases; any failure exits non-zero:
   3b. the same tracking with CVO_SLAM_BACKEND=pallas: align_fused exactly
      once per alignment, the moment kernel never, the suite once per
      alignment, position error below 0.05 m; ms/frame beside phase 3's;
+  3x. the tracking of phase 3 with CVO_SLAM_BACKEND=xla: the suite once
+     per alignment and no other kernel, no plain version of one run,
+     position error below 0.05 m; ms/frame beside phases 3 and 3b's;
   3c. tracking with CVO_SLAM_BACKEND=pallas_iter on the first 8 frames:
      flow_and_step at least once per align iteration, position error
      below 0.05 m;
@@ -87,8 +105,10 @@ Phases; any failure exits non-zero:
      synthetic out-and-back sequence at 640x480 / CAP 3072 with the TUM1
      camera and ORB at 5000 features, counters set to 0 just before and
      read just after; fails unless every kernel launched (pair_stats from
-     the loop-closure verification), at least one loop-closure edge was
-     accepted, every loop_closure.txt row has 62 fields and the SLAM ATE is
+     the loop-closure verification), every loop-closure candidate was
+     verified with the JAX package's routed align (xla under pallas_mom,
+     pallas under pallas and pallas_iter), at least one loop-closure edge
+     was accepted, every loop_closure.txt row has 62 fields and the SLAM ATE is
      below 0.05 m;
   4b. the same walk with CVO_SLAM_BACKEND=pallas: the same checks, the
      moment kernel never launched, and align_fused launched once per
@@ -104,8 +124,12 @@ Phases; any failure exits non-zero:
      align_fused_lanes and ip_suite_lanes launched once per round of each
      request kind, align_fused and ip_suite never; ms per frame round and
      per sequence-frame beside the solo runs' ms/frame. Then the first two
-     sequences, 8 frames, under pallas_mom (equal to solo; the moment
-     kernel lane by lane, the suite as lanes) and through the whole
+     sequences, 8 frames, under pallas_mom, which a batch routes to xla as
+     the JAX package does (each round's aligns one xla lane program, the
+     suite as lanes): poses equal to the solo xla runs bit for bit, the
+     moment kernel and align_fused never launched, no plain version run;
+     ms per sequence-frame beside the solo xla and solo pallas_mom runs'
+     ms/frame; and through the whole
      pipeline (OnlyTracking False, Max_KF_interval=3, the last frame a
      forced keyframe): keyframe counts and poses equal to solo;
   3d. (run after 3c) the tracking of phase 3b with CVO_SLAM_SPECULATE=1:
@@ -124,8 +148,8 @@ Phases; any failure exits non-zero:
      within 1e-6 m, at least one accepted edge; frame-loop and whole run()
      time beside phase 4b's;
   4e. app.run_odometry --adaptive on the 16-frame sequence: 15 finite
-     poses, the moment kernel at least once per alignment and no other
-     kernel; ms/frame and ATE;
+     poses, no kernel launched and no plain version of one run (each
+     iteration one xla pass); ms/frame and ATE;
   4f. data.checkpoint: 8 frames tracked under pallas, saved after frame 4
      and resumed in a fresh tracker, poses bitwise equal to the
      uninterrupted run;
@@ -156,7 +180,8 @@ Phases; any failure exits non-zero:
      host create_pointcloud: count and pixel set exact, positions rtol
      1e-5 / atol 1e-6, features rtol 1e-4 / atol 1e-3 (HSV one quantum on
      H and S); ms per frame of both;
-  5. one engine.frame_step under torch.profiler on each backend: device
+  5. one engine.frame_step under torch.profiler on each backend with a
+     kernel of its own (xla's device work is phase 2x's): device
      busy share, kernel launches per frame and per align iteration, and
      the device time by kernel name (top 10);
   6. a JSON line with every kernel's numbers, the run's seconds, the card
@@ -225,6 +250,14 @@ ALIGN_ITERS_SPREAD = 5
 ALIGN_PAIRS = 6
 ALIGN_PAIRS_GAP = 1.1e-3
 ALIGN_PAIRS_ITERS_SPREAD = 15
+# the xla align against the pallas_mom align on the same pairs (phase 2x):
+# two formulations of the moment-form align whose sums round differently,
+# held as far apart as the pallas_mom align lies from its own plain
+# version on these pairs (1-29 iterations, up to 2.2e-3 m: chip_compare.py
+# kernels on an NVIDIA H100 80GB HBM3, PERF.md §6); the iterations are
+# printed, not held (frames 0 -> 1 stop after 24 xla iterations on the
+# card, 58 on the CPU, 47 in the JAX package's xla on the CPU)
+XLA_PAIRS_GAP = 2.2e-3
 # the lanes of align_fused on the shared frame-0 cloud (phase 2)
 LANE_COUNTS = (1, 2, 4, 10)
 # phase 3e: lockstep tracking of LOCKSTEP_SEQS sequences (the phase-3
@@ -1066,6 +1099,177 @@ def lane_checks(seq, p, report):
 
 
 @contextlib.contextmanager
+def plain_calls():
+    """Counts, in the block, the calls of every plain version of a kernel
+    (kernels.*_plain): the wrappers look them up by name, so a wrapper that
+    took one is counted."""
+    from cvo_slam_tpu_torch.cvo import kernels
+    names = [n for n in dir(kernels) if n.endswith("_plain")]
+    saved = {n: getattr(kernels, n) for n in names}
+    counts = dict.fromkeys(names, 0)
+
+    def counting(name):
+        def call(*args, **kw):
+            counts[name] += 1
+            return saved[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(kernels, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def _no_kernel(name, launches, plain, allowed=()):
+    """Fails unless no kernel but `allowed` launched and no plain version
+    of a kernel ran."""
+    ran = {k: n for k, n in launches.items() if n and k not in allowed}
+    took = {k: n for k, n in plain.items() if n}
+    if ran or took:
+        raise AssertionError(f"{name}: kernels {ran} launched, plain "
+                             f"versions {took} ran")
+
+
+def _wall_ms(fn):
+    """Host ms of one call of fn, ended by a device synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _device_once(fn):
+    """(device ms, device operations) of one call of fn in one
+    torch.profiler window: every CUDA activity (kernels, copies, sets);
+    None for the time if the window holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in ev) / 1e3 if ev
+            else None), len(ev)
+
+
+def pass_parity(seq, p):
+    """The xla pass on the card against the same function on the CPU
+    (plain torch there too, with MKL's product and the CPU's
+    exponential) on frames 0 -> 1 at both ells: keep bit for bit, Mom
+    within 1e-5 of each column's max, omega, v, B, C rtol 2e-4 / atol
+    1e-5 (phase 2's bars for the moment kernel); D and E printed."""
+    import torch
+    from cvo_slam_tpu_torch.ops import pairwise
+    for ell in ELLS:
+        got, want = [], []
+        for dev, out in (("cuda", got), ("cpu", want)):
+            (x, fx, mx), (y, fy, my) = [[t.to(dev) for t in c]
+                                        for c in seq[:2]]
+            e = torch.tensor(ell, device=dev)
+            ckg = pairwise.color_kernel_gated(fx, fy, mx, my, p)
+            center, U = pairwise.step_moment_basis(x, mx)
+            A, keep = pairwise.cvo_kernel_from_color(x, y, ckg, e, p)
+            out += [keep, pairwise.moment_product(A, U)]
+            out += pairwise.flow_and_step_moments_lanes(x, y, ckg, U, center,
+                                                        e, p)
+        if not torch.equal(got[0].cpu(), want[0]):
+            raise AssertionError(f"xla pass ell {ell}: keep differs from "
+                                 f"the CPU's in {int((got[0].cpu() != want[0]).sum())} pairs")
+        scale = want[1].abs().amax(dim=0).clamp(min=1e-30)
+        check_close(f"xla Mom ell {ell}", got[1] / scale.to(got[1].device),
+                    want[1] / scale, 0.0, 1e-5)
+        names = ("omega", "v", "nnz", "B", "C", "D", "E")
+        for name, g, w in zip(names, got[2:], want[2:]):
+            if name == "nnz":
+                if int(g) != int(w):
+                    raise AssertionError(f"xla nnz {int(g)} vs {int(w)}")
+            elif name in ("D", "E"):
+                continue
+            else:
+                check_close(f"xla {name} ell {ell}", g, w, 2e-4, 1e-5)
+        print(f"xla pass CAP {CAPS[0]} ell {ell}, card against CPU: keep "
+              f"equal ({int(got[4])} pairs), Mom, omega, v, B, C within "
+              f"bars; D {float(got[7]):.6e} vs {float(want[7]):.6e}, E "
+              f"{float(got[8]):.6e} vs {float(want[8]):.6e}", flush=True)
+
+
+def xla_checks(seq, p, card):
+    """Phase 2x (module docstring). seq: the sequence's first
+    ALIGN_PAIRS + 1 clouds at CAP 3072."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import engine, kernels
+    from cvo_slam_tpu_torch.ops import pairwise
+    dev = seq[0][0].device
+    clouds = [engine.PointCloud(*c) for c in seq]
+    S = ALIGN_PAIRS
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    ell0 = torch.tensor(ELLS[0], device=dev)
+    init = ([eye] * S, [zero] * S, [ell0] * S)
+
+    def solos(fixed):
+        return [engine.align(fixed[k] if isinstance(fixed, list) else fixed,
+                             clouds[k + 1], eye, zero, ell0, p, "xla")
+                for k in range(S)]
+
+    def lanes(fixed):
+        return engine.align_lanes(fixed, clouds[1:S + 1], *init, p, "xla")
+
+    # one pass first, so the timed calls below find cuBLAS and the
+    # allocator warm
+    (x, fx, mx), (y, fy, my) = seq[0], seq[1]
+    center, U = pairwise.step_moment_basis(x, mx)
+    pairwise.flow_and_step_moments_lanes(
+        x, y, pairwise.color_kernel_gated(fx, fy, mx, my, p), U, center,
+        ell0, p)
+    kernels.reset_launch_counts()
+    with plain_calls() as plain:
+        solo, got = [], []
+        w_s = _wall_ms(lambda: solo.extend(solos(clouds[:S])))
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        w_l = _wall_ms(lambda: got.append(lanes(clouds[:S])))
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+        shared_solo, shared = solos(clouds[0]), lanes(clouds[0])
+        torch.cuda.synchronize()
+    got = got[0]
+    _no_kernel("xla aligns", {k.name: k.launches for k in kernels.KERNELS},
+               plain)
+    _lanes_equal_solo(f"xla {S} lanes", got, solo)
+    _lanes_equal_solo(f"xla {S} lanes on the frame-0 cloud", shared,
+                      shared_solo)
+    rows, err = [], 0.0
+    for k, res in enumerate(solo):
+        mom = engine.align(clouds[k], clouds[k + 1], eye, zero, ell0, p,
+                           "pallas_mom")
+        finite = all(bool(torch.isfinite(t).all()) for t in res)
+        dt, ang = transform_gap((res.R, res.T), (mom.R, mom.T))
+        rows.append((k, int(res.iters), int(mom.iters), dt, ang, finite))
+        err = max(err, dt, ang)
+    print(f"xla align CAP {CAPS[0]} from the identity at ell {ELLS[0]} "
+          f"against the pallas_mom align (iterations, |dt| m, angle rad; "
+          f"bar {XLA_PAIRS_GAP} m / rad): "
+          + "; ".join(f"{k}->{k + 1}: {it} vs {it_m}, {dt:.2e}, {ang:.2e}"
+                      for k, it, it_m, dt, ang, _ in rows)
+          + f"; no kernel launched and no plain version ran; as {S} lanes "
+          f"of one program every lane equal to its solo align bit for bit, "
+          f"on distinct fixed clouds and on the frame-0 cloud (iterations "
+          f"{[int(i) for i in shared.iters]}); on {card}: the {S} lanes "
+          f"{w_l:.1f} ms (peak {peak:.0f} MiB) against {w_s:.1f} ms for the "
+          f"{S} solo aligns ({sum(r[1] + 1 for r in rows)} lane-iterations)",
+          flush=True)
+    if not all(r[5] for r in rows) or err > XLA_PAIRS_GAP:
+        raise AssertionError(f"xla align: not finite, or further than "
+                             f"{XLA_PAIRS_GAP} from the pallas_mom align")
+    pass_parity(seq, p)
+
+
+@contextlib.contextmanager
 def env(**values):
     """The environment variables `values` set for the block (None unsets
     one), restored after."""
@@ -1221,15 +1425,16 @@ def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES,
           f"launches {launches}; alignments {n_align}; max position error "
           f"{err.max():.4f} m, ATE {ate:.4f} m", flush=True)
     # the align kernel of the backend: at least once per iteration, or
-    # (align_fused) exactly once per alignment; the other two never
+    # (align_fused) exactly once per alignment; the others never (xla has
+    # none)
     aligns = {"pallas_mom": "moment_flow_step",
               "pallas_iter": "flow_and_step", "pallas": "align_fused"}
-    align = aligns[backend]
+    align = aligns.get(backend)
     ok = launches["ip_suite"] == n_align and stats["backend"] == backend \
         and all(launches[k] == 0 for k in aligns.values() if k != align)
     if backend == "pallas":
         ok &= launches[align] == n_align
-    else:
+    elif align is not None:
         ok &= launches[align] >= sum(iters)
     if not ok:
         raise AssertionError(f"{backend}: launch counts {launches} do not "
@@ -1326,17 +1531,17 @@ def lockstep(frames, cam, report, card):
                                          f"frame {k} differs from its solo "
                                          f"run")
 
-    def check_launches(name, launches, rounds, align):
+    def check_launches(name, launches, rounds, lanes_kernel):
+        """The suites as lanes, once per round of each kind; the aligns as
+        align_fused lanes, or (lanes_kernel False: xla) no align kernel."""
         want = {"ip_suite_lanes": 2 * rounds["frame"] + rounds["align_ip"]
-                + rounds["ip"], "ip_suite": 0, "align_fused": 0}
-        if align == "align_fused_lanes":
-            want[align] = 2 * rounds["frame"] + rounds["align_ip"] \
-                + rounds["align"]
-        else:
-            want["align_fused_lanes"] = 0
+                + rounds["ip"], "ip_suite": 0, "align_fused": 0,
+                "moment_flow_step": 0, "align_fused_lanes": 0}
+        if lanes_kernel:
+            want["align_fused_lanes"] = 2 * rounds["frame"] \
+                + rounds["align_ip"] + rounds["align"]
         got = {k: launches[k] for k in want}
-        if got != want or (align != "align_fused_lanes"
-                           and launches[align] == 0):
+        if got != want:
             raise AssertionError(f"lockstep {name}: launches {launches}, "
                                  f"rounds {rounds}, want {want}")
 
@@ -1345,7 +1550,7 @@ def lockstep(frames, cam, report, card):
     got, ms, launches, rounds, _ = _lockstep_run(frames, cam, cfg,
                                                  "pallas")
     equal("pallas", got, solo)
-    check_launches("pallas", launches, rounds, "align_fused_lanes")
+    check_launches("pallas", launches, rounds, True)
     for name, n in launches.items():
         if n and not report[name]["launches"]:
             report[name]["launches"] = n
@@ -1364,17 +1569,37 @@ def lockstep(frames, cam, report, card):
         ms_per_sequence_frame=float(np.mean(round_ms)) / S,
         solo_ms_per_frame=float(np.mean(solo_ms)), rounds=rounds)
 
+    # pallas_mom: a batch routes it to xla (the JAX package's routing), so
+    # the lockstep run equals the solo xla runs; the solo pallas_mom runs
+    # time the route of PR 8 (each lane its own moment-kernel align)
     short = [f[:LOCKSTEP_SHORT] for f in frames[:2]]
     with env(CVO_SLAM_BACKEND="pallas_mom"):
+        solo_mom = _solo_runs(short, cam, cfg)
+    with env(CVO_SLAM_BACKEND="xla"):
         solo = _solo_runs(short, cam, cfg)
-    got, ms, launches, rounds, _ = _lockstep_run(short, cam, cfg,
-                                                 "pallas_mom")
-    equal("pallas_mom", got, solo)
-    check_launches("pallas_mom", launches, rounds, "moment_flow_step")
-    print(f"lockstep (pallas_mom) 2 sequences x {LOCKSTEP_SHORT} frames: "
-          f"poses equal to the solo runs bit for bit; rounds {rounds}, "
-          f"launches {launches}; {np.mean(ms[2:]):.1f} ms per frame round",
+    with plain_calls() as plain:
+        got, ms, launches, rounds, _ = _lockstep_run(short, cam, cfg,
+                                                     "pallas_mom")
+    equal("pallas_mom (xla lanes)", got, solo)
+    check_launches("pallas_mom", launches, rounds, False)
+    _no_kernel("lockstep pallas_mom", launches, plain, ("ip_suite_lanes",))
+    S = len(short)
+    xla_ms = [m for _, t, _ in solo for m in t[2:]]
+    mom_ms = [m for _, t, _ in solo_mom for m in t[2:]]
+    print(f"lockstep (pallas_mom, routed to xla lanes) {S} sequences x "
+          f"{LOCKSTEP_SHORT} frames: poses equal to the solo xla runs bit "
+          f"for bit; rounds {rounds}, launches {launches}; "
+          f"{np.mean(ms[2:]):.1f} ms per frame round, "
+          f"{np.mean(ms[2:]) / S:.1f} ms per sequence-frame against "
+          f"{np.mean(xla_ms):.1f} ms per frame solo xla and "
+          f"{np.mean(mom_ms):.1f} solo pallas_mom (the lane-by-lane route)",
           flush=True)
+    report["ip_suite_lanes"]["lockstep_pallas_mom"] = dict(
+        sequences=S, frames=LOCKSTEP_SHORT,
+        ms_per_round=float(np.mean(ms[2:])),
+        ms_per_sequence_frame=float(np.mean(ms[2:])) / S,
+        solo_xla_ms_per_frame=float(np.mean(xla_ms)),
+        solo_pallas_mom_ms_per_frame=float(np.mean(mom_ms)))
 
     cfg = SlamConfig.default_shipped().replace(Max_KF_interval=3)
     with env(CVO_SLAM_BACKEND="pallas"):
@@ -1433,12 +1658,18 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
     if not os.path.exists(os.path.join(folder, "associate.txt")):
         synthetic.make_sequence(folder, cam, trajectory=Gs)
     gt_ts = [f"{1000.0 + 0.05 * k:.6f}" for k in range(len(Gs))]
+    from cvo_slam_tpu_torch.cvo import engine
     trackers, checked = [], dict(calls=0, differ=0)
     build, fetch = run_slam.build_tracker, matcher.fetch_match_bow
+    verify, verified = engine.lc_verify_batch, []
 
     def build_and_keep(*args, **kw):
         trackers.append(build(*args, **kw))
         return trackers[-1]
+
+    def verify_and_record(*args):
+        verified.append(args[-1])
+        return verify(*args)
 
     def fetch_and_check(fut, ref, cur, nn_ratio, check_orientation=True):
         got = fetch(fut, ref, cur, nn_ratio, check_orientation)
@@ -1450,6 +1681,7 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
         return got
 
     run_slam.build_tracker = build_and_keep
+    engine.lc_verify_batch = verify_and_record
     if check_matcher:
         matcher.fetch_match_bow = fetch_and_check
     try:
@@ -1464,6 +1696,7 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
             launches = {k.name: k.launches for k in kernels.KERNELS}
     finally:
         run_slam.build_tracker, matcher.fetch_match_bow = build, fetch
+        engine.lc_verify_batch = verify
     graph = trackers[0].graph
     stats["launches"] = launches
     stats["wba_sizes"] = list(getattr(graph, "wba_sizes", []))
@@ -1495,7 +1728,9 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
           f"loop-closure sub-stages "
           f"{ {k: round(v['mean'], 1) for k, v in stats.get('lc_stage_ms', {}).items()} }; "
           f"per round (ransac ms, verify ms, overlap ms, candidates, device "
-          f"matchings) {rounds}; descriptor matchings {stats.get('lc_matches')}"
+          f"matchings) {rounds}; verification aligns "
+          f"{ {b: verified.count(b) for b in set(verified)} }; descriptor "
+          f"matchings {stats.get('lc_matches')}"
           f"{'; device pairs held against the host match_bow: ' + str(checked) if check_matcher else ''}; "
           f"wall {stats['wall_s']:.1f} s (frame loop), {stats['run_s']:.1f} s "
           f"(run() in all); tracking ATE {ate_track:.4f} m, "
@@ -1514,6 +1749,14 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
                 f"align_fused launched {launches[align]} times for {n_track} "
                 f"tracking alignments and {stats.get('lc_candidates', 0)} "
                 f"loop-closure candidates")
+    # the verification align as the JAX package routes it (_vmap_backend)
+    want = {"pallas_mom": "xla", "pallas_iter": "pallas"}.get(backend,
+                                                               backend)
+    if len(verified) != stats.get("lc_candidates", 0) \
+            or set(verified) - {want}:
+        raise AssertionError(f"{backend}: loop-closure verification aligned "
+                             f"under {verified}, want {want} for each of "
+                             f"{stats.get('lc_candidates', 0)} candidates")
     if not report["pair_stats"]["launches"]:
         report["pair_stats"]["launches"] = launches["pair_stats"]
     if stats["lc_num"] < 1:
@@ -1581,17 +1824,19 @@ def odometry(folder, gt, card):
 
 def adaptive_odometry(folder, gt, card):
     """Phase 4e: app.run_odometry --adaptive on the tracking sequence,
-    counters set to 0 just before, read just after: 15 finite poses, the
-    moment kernel at least once per alignment and no other kernel."""
+    counters set to 0 just before, read just after: 15 finite poses, no
+    kernel launched and no plain version of one run (each iteration one
+    xla pass, as the JAX package's adaptive variant)."""
     import numpy as np
     from cvo_slam_tpu_torch.app import run_odometry
     from cvo_slam_tpu_torch.config import SlamConfig
     from cvo_slam_tpu_torch.cvo import kernels
     from cvo_slam_tpu_torch.data import tum
     kernels.reset_launch_counts()
-    stats = run_odometry.run(folder, "associate.txt", "TUM1",
-                             SlamConfig.default_shipped(), adaptive=True,
-                             device="cuda")
+    with plain_calls() as plain:
+        stats = run_odometry.run(folder, "associate.txt", "TUM1",
+                                 SlamConfig.default_shipped(), adaptive=True,
+                                 device="cuda")
     launches = {k.name: k.launches for k in kernels.KERNELS}
     ts, poses = tum.read_trajectory(stats["trajectory"])
     ate = tum.ate_rmse([f"{1000.0 + 0.05 * k:.6f}" for k in range(N_FRAMES)],
@@ -1603,9 +1848,7 @@ def adaptive_odometry(folder, gt, card):
     if len(ts) != N_FRAMES - 1 or not np.isfinite(poses).all():
         raise AssertionError(f"run_odometry --adaptive wrote {len(ts)} "
                              f"poses, finite: {np.isfinite(poses).all()}")
-    if launches["moment_flow_step"] < N_FRAMES - 1 or any(
-            n for k, n in launches.items() if k != "moment_flow_step"):
-        raise AssertionError(f"run_odometry --adaptive launches {launches}")
+    _no_kernel("run_odometry --adaptive", launches, plain)
 
 
 def resume(folder, card, n_frames=8, at=4):
@@ -2043,6 +2286,8 @@ def main(argv=None) -> int:
             lane_checks(seq, p, report)
         with phase("2m"):
             sharded_align(seq, p, report, card)
+        with phase("2x"):
+            xla_checks(seq, p, card)
             del seq
 
         # -- phase 3: tracking-only SLAM through the CLI's run() on each
@@ -2054,12 +2299,17 @@ def main(argv=None) -> int:
             t_mom = tracking(folder, gt, report, card, "pallas_mom")
         with phase("3b"):
             fused = tracking(folder, gt, report, card, "pallas")
+        with phase("3x"):
+            with plain_calls() as plain:
+                t_xla = tracking(folder, gt, report, card, "xla")
+            _no_kernel("tracking (xla)", {}, plain)
         t_fused = fused["t_frame"]
         print(f"ms/frame mean / median: pallas_mom "
               f"{np.mean(t_mom['t_frame']):.1f} / "
               f"{np.median(t_mom['t_frame']):.1f}, pallas "
-              f"{np.mean(t_fused):.1f} / {np.median(t_fused):.1f}",
-              flush=True)
+              f"{np.mean(t_fused):.1f} / {np.median(t_fused):.1f}, xla "
+              f"{np.mean(t_xla['t_frame']):.1f} / "
+              f"{np.median(t_xla['t_frame']):.1f}", flush=True)
         with phase("3c"):
             tracking(folder, gt, report, card, "pallas_iter", ITER_FRAMES)
         with phase("3d"):

@@ -8,7 +8,7 @@ pose chain, and write `cvo_poses_qt.txt` lines `name tx ty tz qx qy qz qw`
 (cvo_main.cpp:60-65). The align backend of the fixed ell anneal comes from
 CVO_SLAM_BACKEND (engine.default_backend); --adaptive selects the
 adaptive-ell variant (cvo.adaptive.adaptive_align, re-expressing
-adaptive_cvo.cpp), whose iterations run the moment kernel.
+adaptive_cvo.cpp), whose iterations run the xla backend's dense pass.
 
 Usage:
   python -m cvo_slam_tpu_torch.app.run_odometry --folder <seq_dir> \

@@ -44,6 +44,7 @@ from ..device import StreamWorker
 from ..features import matcher as matcher_mod
 from ..features.bow import Vocabulary
 from ..features.matcher import Matcher
+from ..parallel.batch import _batch_backend
 from ..tracking.types import Keyframe, TrackingResult
 
 
@@ -71,9 +72,8 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
                       n_levels=cam.orb_n_levels)
     # the verification align, routed as the JAX package's _vmap_backend:
     # under 'pallas' and 'pallas_iter' one align_fused launch per
-    # candidate; under 'pallas_mom' the moment-kernel loop
-    backend = engine.default_backend()
-    verify_backend = "pallas" if backend == "pallas_iter" else backend
+    # candidate; under 'pallas_mom' and 'xla' the xla align
+    verify_backend = _batch_backend(engine.default_backend())
     refresh_thread = [None]
     verifier = []   # the StreamWorker, made on the first round's device
 

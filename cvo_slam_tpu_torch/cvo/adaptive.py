@@ -23,13 +23,14 @@ As in the JAX package, the reduction is the mathematically intended one:
 the reference's TBB loop never fills `sum_diff_yy_2` for rows i <
 num_fixed (adaptive_cvo.cpp:214-222).
 
-Each iteration's flow and step coefficients come from the moment kernel
-(kernels.moment_flow_step: the CUDA kernel on the card, its plain version
-on the CPU), nnz(Axy) with them. The dl terms are plain torch: |x_i-x_j|^2
-and |y_i-y_j|^2 (geometric and colour) are invariant under the rigid
-update, so the four self-distance matrices are computed once per alignment
-(~151 MB at CAP 3072) and re-kernelled with the current ell each
-iteration; the cross sum is evaluated on the current pair set.
+Each iteration is one pass of the xla backend's dense moment form, as in
+the JAX package: one kernel matrix A_xy (ops.pairwise.cvo_kernel_from_color
+on the gated colour kernel, a loop constant) gives the flow and step
+coefficients (ops.pairwise.flow_and_step_from_A), nnz(Axy) and the cross
+sum. The dl self terms: |x_i-x_j|^2 and |y_i-y_j|^2 (geometric and colour)
+are invariant under the rigid update, so the four self-distance matrices
+are computed once per alignment (~151 MB at CAP 3072) and re-kernelled
+with the current ell each iteration. All of it is plain torch.
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ import torch
 
 from ..config import CvoParams
 from ..ops import cubic, pairwise, se3
-from . import kernels
 from .engine import ALIGN_CHUNK, AlignResult, PointCloud, _f32
 
 
@@ -92,8 +92,8 @@ def adaptive_align(fixed: PointCloud, moving: PointCloud, R0, T0,
     dev = fixed.device
     x, fx, mx = fixed.positions, fixed.features, fixed.mask
     y0, fy, my = moving.positions, moving.features, moving.mask
+    ckg = pairwise.color_kernel_gated(fx, fy, mx, my, p)
     center, U = pairwise.step_moment_basis(x, mx)
-    U = U.contiguous()
     # rigid-invariant self-distance matrices: loop constants
     d2_xx, d2c_xx = _self_d2(x, fx, mx)
     d2_yy, d2c_yy = _self_d2(y0, fy, my)
@@ -111,12 +111,13 @@ def adaptive_align(fixed: PointCloud, moving: PointCloud, R0, T0,
             Rt = R.T
             Tt = -(Rt @ T)
             y = (y0 @ R + Tt[None, :]).contiguous()
-            omega, v, nnz_xy, B, C, D, E = kernels.moment_flow_step(
-                x, y, fx, fy, mx, my, U, center, ell, p)
+            A_xy, keep_xy = pairwise.cvo_kernel_from_color(x, y, ckg, ell,
+                                                           p)
+            omega, v, nnz_xy, B, C, D, E = pairwise.flow_and_step_from_A(
+                A_xy, keep_xy, y, U, center, ell, p)
             # dl (adaptive_cvo.cpp:222-271): self terms from the
             # precomputed distance matrices, cross term from the current
             # pair set
-            A_xy, keep_xy = pairwise.cvo_kernel(x, y, fx, fy, mx, my, ell, p)
             d2_xy = pairwise.pairwise_sq_dists(x, y)
             sum_xy = torch.sum(A_xy * torch.where(keep_xy, d2_xy,
                                                   torch.zeros_like(d2_xy)))

@@ -3,7 +3,7 @@
 
   * `align` (cvo.cpp:763-821) carries (R, T, ell) with both stopping rules
     (flow norms < eps at :782; se3 distance < eps_2 at :804) and the ell
-    anneal schedule (:810-812) on one of three backends, named as in the
+    anneal schedule (:810-812) on one of four backends, named as in the
     JAX package (CVO_SLAM_BACKEND, `default_backend`):
       - 'pallas_mom' (default) and 'pallas_iter': `align_loop`, a host loop
         of device iterations running the moment kernel
@@ -13,19 +13,29 @@
         no-ops: the loop reads the stop flag from the device only once per
         chunk of ALIGN_CHUNK iterations, and the iteration count is the
         same as a loop that stops at once;
-      - 'pallas': the whole loop in one launch (cvo.kernels.align_fused).
+      - 'pallas': the whole loop in one launch (cvo.kernels.align_fused);
+      - 'xla': the JAX package's dense moment-form pass in plain torch
+        (ops.pairwise.flow_and_step_moments_lanes: the gated colour kernel
+        and the moment basis loop constants, per iteration the (N, M)
+        kernel matrix, one torch.mm A^T U and the epilogue), through
+        `align_loop_lanes`; the solo align is its one-lane run. The JAX
+        package routes 'pallas_mom' here for lanes and loop-closure
+        verification (parallel.batch._batch_backend).
   * `compute_innerproduct` runs the suite kernel (cvo.kernels.ip_suite);
     `compute_innerproduct_lc` (cvo.cpp:505-561) runs the pair-stats kernel
     (cvo.kernels.pair_stats) 6 + 2 times, and `lc_verify_batch` re-registers
     the loop-closure candidates of a round (under 'pallas' as the lanes of
-    one align_fused launch) and scores each.
+    one align_fused launch, under 'xla' as one lane program) and scores
+    each.
   * the lanes (the JAX package's vmapped align, multi_sequence.py:44-73):
     `align_lanes`, `compute_innerproduct_lanes`,
     `align_and_innerproduct_lanes` and `frame_step_lanes` run S requests of
     one kind at once, under 'pallas' through one align_fused_lanes launch
-    per align and one ip_suite_lanes launch per inner-product suite; each
-    lane equals the one-lane function on its inputs bit for bit. Every
-    other backend aligns lane by lane (the port has no XLA path).
+    per align and one ip_suite_lanes launch per inner-product suite, under
+    'xla' as one program (one (S, N, M) pass and one epilogue per
+    iteration, `align_loop_lanes`); each lane equals the one-lane function
+    on its inputs bit for bit. 'pallas_mom' and 'pallas_iter' align lane
+    by lane.
   * the Hessian's eigenvalue floor (se3_Hessian, cvo.cpp:620-759) is
     `hessian_postprocess` (`hessian_postprocess_lanes` for a stack).
 
@@ -51,7 +61,7 @@ from ..ops.jacobi import eigvalsh_jacobi
 from . import kernels
 
 ALIGN_CHUNK = 4   # align iterations between two reads of the stop flag
-BACKENDS = ("pallas_mom", "pallas", "pallas_iter")
+BACKENDS = ("pallas_mom", "pallas", "pallas_iter", "xla")
 
 
 class PointCloud(NamedTuple):
@@ -94,8 +104,9 @@ def _f32(v, device):
 def default_backend() -> str:
     """The align backend named by CVO_SLAM_BACKEND, as the JAX package reads
     it: 'pallas_mom' (the moment kernel per iteration; the default),
-    'pallas' (the whole align loop in one align_fused launch) or
-    'pallas_iter' (one flow_and_step launch per iteration)."""
+    'pallas' (the whole align loop in one align_fused launch),
+    'pallas_iter' (one flow_and_step launch per iteration) or 'xla' (the
+    dense moment-form pass in plain torch)."""
     env = os.environ.get("CVO_SLAM_BACKEND", "")
     return check_backend(env) if env else "pallas_mom"
 
@@ -104,7 +115,7 @@ def check_backend(backend: str) -> str:
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown align backend {backend!r}: the port runs "
-            f"{', '.join(BACKENDS)} ('xla' has no counterpart on the card)")
+            f"{', '.join(BACKENDS)}")
     return backend
 
 
@@ -123,6 +134,10 @@ def align(fixed: PointCloud, moving: PointCloud, R0, T0, ell0,
             x, fx, mx, y0, fy, my, R0.contiguous(), T0.contiguous(), ell0, p)
         return AlignResult(R, T, se3.make_pose(R.T, -(R.T @ T)), ell, iters,
                            nnz)
+    if backend == "xla":
+        res = _align_xla_lanes(fixed, stack_clouds([moving]), [R0], [T0],
+                               [ell0], p)
+        return AlignResult(*(t[0] for t in res))
     if backend == "pallas_iter":
         def iterate(y, ell):
             return kernels.flow_and_step(x, y, fx, fy, mx, my, ell, p)
@@ -138,57 +153,140 @@ def align(fixed: PointCloud, moving: PointCloud, R0, T0, ell0,
     return align_loop(iterate, y0, R0, T0, ell0, p)
 
 
+def _initial_state(R0, T0, ell0, device, p: CvoParams):
+    """(R, T, ell, done, iters, nnz) of an alignment before its first
+    iteration, each tensor its own."""
+    return (_f32(R0, device).clone(), _f32(T0, device).clone(),
+            _f32(ell0, device).reshape(()).clone(),
+            torch.zeros((), dtype=torch.bool, device=device),
+            torch.full((), p.max_iter, dtype=torch.int64, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _update(state, k: int, out, p: CvoParams):
+    """One align iteration's state update from the pass output
+    out = (omega, v, nnz, B, C, D, E) at iteration k: the step size, both
+    stop tests and the ell anneal, every update gated on active = ~done."""
+    R, T, ell, done, iters, nnz = state
+    omega, v, nnz_k, B, C, D, E = out
+    step = cubic.min_positive_root_or(4.0 * E, 3.0 * D, 2.0 * C, B,
+                                      p.min_step, p.max_step)
+    active = ~done
+    # stop 1: flow norms below eps (:782) — break before the update
+    stop1 = active & (torch.linalg.norm(omega) < p.eps) \
+        & (torch.linalg.norm(v) < p.eps)
+    do_update = active & ~stop1
+    dtrans = se3.exp_sek3(torch.cat([omega, v]), step)
+    dR = dtrans[:3, :3]
+    dT = dtrans[:3, 3]
+    T_new = torch.where(do_update, R @ dT + T, T)
+    R = torch.where(do_update, R @ dR, R)
+    T = T_new
+    # stop 2: se3 distance of the increment below eps_2 (:804)
+    stop2 = do_update & (se3.dist_se3(dR, dT) < p.eps_2)
+    done_new = done | stop1 | stop2
+    iters = torch.where(active & (stop1 | stop2),
+                        torch.full_like(iters, k), iters)
+    # ell anneal (:810-812) — skipped on break (it follows the break)
+    ell_ann = ell
+    for it, val in zip(p.ell_anneal_iters, p.ell_anneal_values):
+        if k > it:
+            ell_ann = torch.full_like(ell, val)
+    ell = torch.where(active & ~stop1 & ~stop2, ell_ann, ell)
+    nnz = torch.where(active, nnz_k, nnz)
+    return R, T, ell, done_new, iters, nnz
+
+
+def _result(state) -> AlignResult:
+    R, T, ell, _, iters, nnz = state
+    transform = se3.make_pose(R.T, -(R.T @ T))   # final update_tf (:817)
+    return AlignResult(R, T, transform, ell, iters, nnz)
+
+
 def align_loop(iterate, y0, R0, T0, ell0, p: CvoParams) -> AlignResult:
     """The host align loop carrying (R, T, ell) from (R0, T0, ell0), with
     `iterate(y, ell)` -> (omega, v, nnz, B, C, D, E) the pairwise pass of
     one iteration on the transformed moving positions y."""
-    dev = y0.device
-    R, T = _f32(R0, dev), _f32(T0, dev)
-    ell = _f32(ell0, dev).reshape(())
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    iters = torch.full((), p.max_iter, dtype=torch.int64, device=dev)
-    nnz = torch.zeros((), dtype=torch.int32, device=dev)
-    a_iters, a_vals = p.ell_anneal_iters, p.ell_anneal_values
-
+    state = _initial_state(R0, T0, ell0, y0.device, p)
     k = 0
     while k < p.max_iter:
         for _ in range(min(ALIGN_CHUNK, p.max_iter - k)):
             # update_tf (:106-110): transform = [R^T | -R^T T]; transform_pcd
+            R, T = state[0], state[1]
             Rt = R.T
             Tt = -(Rt @ T)
             y = (y0 @ R + Tt[None, :]).contiguous()
-            omega, v, nnz_k, B, C, D, E = iterate(y, ell)
-            step = cubic.min_positive_root_or(4.0 * E, 3.0 * D, 2.0 * C, B,
-                                              p.min_step, p.max_step)
-            active = ~done
-            # stop 1: flow norms below eps (:782) — break before the update
-            stop1 = active & (torch.linalg.norm(omega) < p.eps) \
-                & (torch.linalg.norm(v) < p.eps)
-            do_update = active & ~stop1
-            dtrans = se3.exp_sek3(torch.cat([omega, v]), step)
-            dR = dtrans[:3, :3]
-            dT = dtrans[:3, 3]
-            T_new = torch.where(do_update, R @ dT + T, T)
-            R = torch.where(do_update, R @ dR, R)
-            T = T_new
-            # stop 2: se3 distance of the increment below eps_2 (:804)
-            stop2 = do_update & (se3.dist_se3(dR, dT) < p.eps_2)
-            done_new = done | stop1 | stop2
-            iters = torch.where(active & (stop1 | stop2),
-                                torch.full_like(iters, k), iters)
-            # ell anneal (:810-812) — skipped on break (it follows the break)
-            ell_ann = ell
-            for it, val in zip(a_iters, a_vals):
-                if k > it:
-                    ell_ann = torch.full_like(ell, val)
-            ell = torch.where(active & ~stop1 & ~stop2, ell_ann, ell)
-            nnz = torch.where(active, nnz_k, nnz)
-            done = done_new
+            state = _update(state, k, iterate(y, state[2]), p)
             k += 1
-        if bool(done):
+        if bool(state[3]):
             break
-    transform = se3.make_pose(R.T, -(R.T @ T))   # final update_tf (:817)
-    return AlignResult(R, T, transform, ell, iters, nnz)
+    return _result(state)
+
+
+def _moved_lanes(y0, R, T):
+    """y0 (S, M, 3) under each lane's update_tf [R^T | -R^T T]
+    (cvo.cpp:106-110, :336): y0 R - R^T T, written out per component so
+    each lane's points do not depend on the lane count."""
+    Tt = -(R[:, 0, :] * T[:, 0, None] + R[:, 1, :] * T[:, 1, None]
+           + R[:, 2, :] * T[:, 2, None])
+    return (y0[..., 0, None] * R[:, None, 0, :]
+            + y0[..., 1, None] * R[:, None, 1, :]
+            + y0[..., 2, None] * R[:, None, 2, :] + Tt[:, None, :])
+
+
+def align_loop_lanes(iterate, y0, states, p: CvoParams):
+    """align_loop over S lanes run as one program: `iterate(y, ell)` the
+    pass of every lane at once on y (S, M, 3) and ell (S,), returning
+    (omega, v, nnz, B, C, D, E) with a leading lane axis; then each lane's
+    `_update` (a stopped lane frozen while the others run, the JAX
+    package's vmap-of-while). The loop reads the lanes' stop flags once per
+    ALIGN_CHUNK iterations and ends when every lane has stopped. Returns
+    the lanes' states."""
+    k = 0
+    while k < p.max_iter:
+        for _ in range(min(ALIGN_CHUNK, p.max_iter - k)):
+            R, T, ell = (torch.stack([s[i] for s in states])
+                         for i in range(3))
+            out = iterate(_moved_lanes(y0, R, T), ell)
+            states = [_update(s, k, [o[l] for o in out], p)
+                      for l, s in enumerate(states)]
+            k += 1
+        if bool(torch.stack([s[3] for s in states]).all()):
+            break
+    return states
+
+
+def _align_xla_lanes(fixed, mv: PointCloud, R0, T0, ell0,
+                     p: CvoParams) -> AlignResult:
+    """The xla align of S lanes as one program: mv the stacked moving
+    clouds (S, M, .), fixed one cloud of every lane or a list of S clouds,
+    (R0[l], T0[l], ell0[l]) per lane. The gated colour kernel (S, N, M) and
+    each fixed cloud's moment basis are loop constants (the JAX package's
+    engine.py:178-187). Returns an AlignResult with a leading lane axis."""
+    dev = mv.device
+    lanes = mv.positions.shape[0]
+    if isinstance(fixed, PointCloud):
+        fx = fixed
+        center, U = pairwise.step_moment_basis(fixed.positions, fixed.mask)
+    else:
+        fx = stack_clouds(fixed)
+        bases = [pairwise.step_moment_basis(f.positions, f.mask)
+                 for f in fixed]
+        center = torch.stack([c for c, _ in bases])
+        U = [u for _, u in bases]
+    ckg = pairwise.color_kernel_gated(fx.features, mv.features, fx.mask,
+                                      mv.mask, p)
+
+    def iterate(y, ell):
+        return pairwise.flow_and_step_moments_lanes(fx.positions, y, ckg, U,
+                                                    center, ell, p)
+
+    states = align_loop_lanes(
+        iterate, mv.positions,
+        [_initial_state(R0[l], T0[l], ell0[l], dev, p)
+         for l in range(lanes)], p)
+    return AlignResult(*(torch.stack(list(t))
+                         for t in zip(*map(_result, states))))
 
 
 # ---------------------------------------------------------------------------
@@ -329,18 +427,21 @@ def align_lanes(fixed, moving, R0, T0, ell0, p: CvoParams,
     """align over S lanes (the JAX package's vmapped align): lane l aligns
     moving[l] against fixed[l] (a list of S clouds), or against `fixed` (one
     PointCloud of every lane), from (R0[l], T0[l], ell0[l]). Under 'pallas'
-    one align_fused_lanes launch, a stopped lane frozen while the others
-    run; under every other backend lane by lane. Each lane equals align on
+    one align_fused_lanes launch, under 'xla' one lane program
+    (_align_xla_lanes), a stopped lane frozen while the others run; under
+    'pallas_mom' and 'pallas_iter' lane by lane. Each lane equals align on
     its inputs bit for bit. Returns an AlignResult with a leading lane
     axis. moving_stacked / fixed_stacked: the clouds already stacked."""
     check_backend(backend)
     lanes = len(moving)
-    if backend != "pallas":
+    if backend in ("pallas_mom", "pallas_iter"):
         return _stack_results(
             align(f, m, R0[l], T0[l], ell0[l], p, backend)
             for l, (f, m) in enumerate(zip(_lane_fixed(fixed, lanes),
                                            moving)))
     mv = stack_clouds(moving) if moving_stacked is None else moving_stacked
+    if backend == "xla":
+        return _align_xla_lanes(fixed, mv, R0, T0, ell0, p)
     fx = _stacked_fixed(fixed) if fixed_stacked is None else fixed_stacked
     dev = mv.device
     R, T, ell, iters, nnz = kernels.align_fused_lanes(
@@ -464,17 +565,17 @@ def lc_verify_batch(fixed: PointCloud, movings, R0, T0, ell0, priors,
     (keyframe_graph.cpp:693-714: reset_initial(lc_prior) -> set_pcd(ref) ->
     match_keyframe(cand) -> compute_innerproduct_lc) against the shared
     reference cloud. Under 'pallas' the candidates are the lanes of one
-    align_fused launch with the reference as every lane's fixed cloud (the
-    JAX package's vmap, converged lanes frozen, so each lane equals its
-    solo run); a single candidate, and every other backend, align one
-    candidate after the other. Then compute_innerproduct_lc per candidate.
+    align_fused launch, under 'xla' of one lane program, with the reference
+    as every lane's fixed cloud (the JAX package's vmap, converged lanes
+    frozen, so each lane equals its solo run); a single candidate, and the
+    other backends, align one candidate after the other. Then compute_innerproduct_lc per candidate.
     The pnpransac prior is the identity (never assigned in the reference's
     active code).
 
     movings: a sequence of PointCloud; R0/T0/ell0/priors/lc_priors: one
     entry per candidate. Returns [(AlignResult, lc dict)] in order."""
     eye4 = np.eye(4, dtype=np.float32)
-    if backend == "pallas" and len(movings) > 1:
+    if backend in ("pallas", "xla") and len(movings) > 1:
         lanes = align_lanes(fixed, movings, R0, T0, ell0, p, backend)
         results = [AlignResult(*(t[l] for t in lanes))
                    for l in range(len(movings))]

@@ -5,6 +5,10 @@ cvo_slam_tpu.ops.pairwise that tracking needs).
   * the 35-monomial moment basis of the fixed cloud and the O(M) epilogue
     `flow_and_step_from_moments` that turns the moment matrix of one align
     iteration into (omega, v, B, C, D, E) (cvo.cpp:187-334);
+  * the dense moment-form pass of the JAX package's 'xla' align
+    (`color_kernel_gated`, `cvo_kernel_from_color`,
+    `flow_and_step_moments`; `flow_and_step_moments_lanes` for S lanes,
+    each lane's bits independent of the lane count);
   * the 13x13 Hessian moment algebra (`assemble_hessian`, cvo.cpp:620-759);
   * `ip_suite`, the plain version of compute_innerproduct's pairwise work
     (cvo.cpp:475-503), which the CUDA suite kernel is held against;
@@ -58,11 +62,11 @@ def d2_color_threshold(p: CvoParams) -> float:
 
 
 def sq_norms(a):
-    """(N, K) -> (N,) sum of squares, accumulated column by column (no
-    fused multiply-add, as XLA's reduction on the CPU)."""
-    out = a[:, 0] * a[:, 0]
-    for c in range(1, a.shape[1]):
-        out = out + a[:, c] * a[:, c]
+    """(..., N, K) -> (..., N) sum of squares, accumulated column by column
+    (no fused multiply-add, as XLA's reduction on the CPU)."""
+    out = a[..., 0] * a[..., 0]
+    for c in range(1, a.shape[-1]):
+        out = out + a[..., c] * a[..., c]
     return out
 
 
@@ -74,12 +78,14 @@ def _fma(a, b, c):
 
 
 def pair_dots(a, b):
-    """(M, K), (N, K) -> (M, N) dot products a_j . b_i as a chain of fused
-    multiply-adds, acc = a_0 b_0, acc = fma(a_c, b_c, acc): the rounding of
-    XLA's f32 dot on the CPU and of the CUDA suite kernel (__fmaf_rn)."""
-    out = a[:, None, 0] * b[None, :, 0]
-    for c in range(1, a.shape[1]):
-        out = _fma(a[:, None, c], b[None, :, c], out)
+    """(..., M, K), (..., N, K) -> (..., M, N) dot products a_j . b_i as a
+    chain of fused multiply-adds, acc = a_0 b_0, acc = fma(a_c, b_c, acc):
+    the rounding of XLA's f32 dot on the CPU and of the CUDA suite kernel
+    (__fmaf_rn). Leading lane axes broadcast; every entry is computed
+    elementwise, so it does not depend on the lane count."""
+    out = a[..., :, None, 0] * b[..., None, :, 0]
+    for c in range(1, a.shape[-1]):
+        out = _fma(a[..., :, None, c], b[..., None, :, c], out)
     return out
 
 
@@ -93,9 +99,10 @@ def row_dots(a, b):
 
 
 def pairwise_sq_dists(a, b):
-    """(M,3),(N,3) -> (M,N) squared distances via the dot-product identity
-    max(|a|^2 + |b|^2 - 2 a.b, 0) (ops/pairwise.py of the JAX package)."""
-    return torch.clamp(sq_norms(a)[:, None] + sq_norms(b)[None, :]
+    """(..., M, K), (..., N, K) -> (..., M, N) squared distances via the
+    dot-product identity max(|a|^2 + |b|^2 - 2 a.b, 0) (ops/pairwise.py of
+    the JAX package)."""
+    return torch.clamp(sq_norms(a)[..., :, None] + sq_norms(b)[..., None, :]
                        - 2.0 * pair_dots(a, b), min=0.0)
 
 
@@ -135,6 +142,11 @@ def flow(x, y, fx, fy, mx, my, ell, p: CvoParams):
     omega = (1/c) sum_ij A_ij (x_i x y_j), v = (1/d) sum_ij A_ij (y_j - x_i).
     Returns (omega, v, A, nnz)."""
     A, keep = cvo_kernel(x, y, fx, fy, mx, my, ell, p)
+    return _flow_from_A(x, y, A, keep, p)
+
+
+def _flow_from_A(x, y, A, keep, p: CvoParams):
+    """(omega, v, A, nnz) of the flow from the kernel matrix A (N, M)."""
     # d_i = sum_j A_ij (y_j - x_i) is locally small; omega = sum x_i x d_i
     # (exact: x x x = 0) does not cancel when clouds sit metres from the
     # origin, as the raw sum of x_i x y_j would
@@ -299,10 +311,22 @@ def flow_and_step_from_moments(Mom, y, center, ell, nnz, p: CvoParams):
                     -two_tc * xi3z)
     epsil = _affine(-tc * epsil_const + two_tc * ddot(xi4z), -two_tc * xi4z)
 
+    PB, PC, PD, PE = _quartic_polys(beta, gamma, delta, epsil)
+
+    def contract(poly):
+        return sum(torch.dot(coef, Mom[:, _MONO_INDEX[k]])
+                   for k, coef in poly.items())
+
+    return omega, v, nnz, contract(PB), contract(PC), contract(PD), \
+        contract(PE)
+
+
+def _quartic_polys(beta, gamma, delta, epsil):
+    """The per-j polynomials of B, C, D, E from the affine Taylor factors:
+    PB = beta, PC = gamma + beta^2/2, PD = delta + beta gamma + beta^3/6,
+    PE = epsil + beta delta + beta^2 gamma/2 + gamma^2/2 + beta^4/24."""
     b2 = _poly_mul(beta, beta)
     bg = _poly_mul(beta, gamma)
-    # PB = beta;  PC = gamma + beta^2/2;  PD = delta + beta*gamma + beta^3/6
-    # PE = epsil + beta*delta + beta^2 gamma/2 + gamma^2/2 + beta^4/24
     PB = dict(beta)
     PC = _poly_addmul(dict(gamma), b2, 0.5)
     PD = _poly_addmul(_poly_addmul(dict(delta), bg),
@@ -311,13 +335,197 @@ def flow_and_step_from_moments(Mom, y, center, ell, nnz, p: CvoParams):
                       _poly_mul(b2, gamma), 0.5)
     PE = _poly_addmul(PE, _poly_mul(gamma, gamma), 0.5)
     PE = _poly_addmul(PE, _poly_mul(b2, b2), 1.0 / 24.0)
+    return PB, PC, PD, PE
 
-    def contract(poly):
-        return sum(torch.dot(coef, Mom[:, _MONO_INDEX[k]])
-                   for k, coef in poly.items())
 
-    return omega, v, nnz, contract(PB), contract(PC), contract(PD), \
-        contract(PE)
+# ---------------------------------------------------------------------------
+# the dense moment-form pass of the JAX package's 'xla' backend
+# (ops/pairwise.py of the JAX package: color_kernel_gated,
+# cvo_kernel_from_color, flow_and_step_moments)
+# ---------------------------------------------------------------------------
+# The kernel functions take leading lane axes (S alignments at once; a
+# fixed cloud without one is every lane's) and compute every (N, M) value
+# elementwise. The lanes' pass (flow_and_step_moments_lanes) takes one
+# torch.mm per lane for the moment product and sums over the moving points
+# in a fixed pairwise order (sum_pairwise), so each lane's result is that of
+# its one-lane call whatever the lane count: a library reduction or a
+# batched product may pick its order by the number of outputs or lanes.
+
+def color_kernel_gated(fx, fy, mx, my, p: CvoParams):
+    """(..., N, M) colour kernel with its gate and both validity masks
+    folded in (zero where the colour gate or a mask fails). Features do not
+    change during an alignment (only positions transform, cvo.cpp:336-341),
+    so an alignment computes it once."""
+    d2c = pairwise_sq_dists(fx, fy)
+    cgate = (d2c < d2_color_threshold(p)) & mx[..., :, None] \
+        & my[..., None, :]
+    ck = (p.c_sigma * p.c_sigma) * torch.exp(
+        torch.clamp(-d2c / (2.0 * p.c_ell * p.c_ell), min=-20.0))
+    return torch.where(cgate, ck, torch.zeros_like(ck))
+
+
+def cvo_kernel_from_color(x, y, ckg, ell, p: CvoParams):
+    """(A, keep), each (..., N, M): the joint kernel of the fixed positions
+    x against the moved positions y with the colour factor ckg from
+    color_kernel_gated (zero encodes a failed colour gate or mask, so the
+    pair fails a > sp_thres); ell one per lane."""
+    ell = ell[..., None, None]
+    d2 = pairwise_sq_dists(x, y)
+    k = (p.sigma * p.sigma) * torch.exp(
+        torch.clamp(-d2 / (2.0 * ell * ell), min=-20.0))
+    a = ckg * k
+    keep = (d2 < d2_threshold(ell, p)) & (a > p.sp_thres)
+    return torch.where(keep, a, torch.zeros_like(a)), keep
+
+
+def flow_from_color(x, y, ckg, ell, p: CvoParams):
+    """flow with the colour kernel precomputed by color_kernel_gated (one
+    lane): (omega, v, A, nnz)."""
+    A, keep = cvo_kernel_from_color(x, y, ckg, ell, p)
+    return _flow_from_A(x, y, A, keep, p)
+
+
+def sum_pairwise(t):
+    """Sum over the last axis in a fixed order: zero-padded to a power of
+    two, then the upper half added to the lower half, elementwise, until one
+    column remains. Every output is summed in the same order whatever the
+    leading shape and the device."""
+    n = t.shape[-1]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size != n:
+        t = torch.nn.functional.pad(t, (0, size - n))
+    while size > 1:
+        size //= 2
+        t = t[..., :size] + t[..., size:]
+    return t[..., 0]
+
+
+def moment_product(A, U):
+    """Mom (..., M, 35) = A^T U per lane: A (..., N, M) and U (N, 35), one
+    per lane (..., N, 35), or a list of the lanes' (N, 35); Precision.HIGHEST
+    in the JAX package, so f32 products with TF32 off (package init)."""
+    if A.dim() == 2:
+        return torch.mm(A.T, U)
+    lanes = A.reshape(-1, *A.shape[-2:])
+    shared = torch.is_tensor(U) and U.dim() == 2
+    mom = torch.stack([torch.mm(a.T, U if shared else U[l])
+                       for l, a in enumerate(lanes)])
+    return mom.reshape(*A.shape[:-2], *mom.shape[-2:])
+
+
+def _cross3(a, b):
+    """a x b of component lists [x, y, z]."""
+    return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0]]
+
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _mat3(a, b):
+    """a @ b of (..., 3, 3) matrices, written out per entry."""
+    return torch.stack([torch.stack([a[..., i, 0] * b[..., 0, j]
+                                     + a[..., i, 1] * b[..., 1, j]
+                                     + a[..., i, 2] * b[..., 2, j]
+                                     for j in range(3)], dim=-1)
+                        for i in range(3)], dim=-2)
+
+
+def _matvec3(a, u, extra=None):
+    """a u (+ extra) per point: a (..., 3, 3), u and extra component lists
+    of (..., M) or (..., 1)."""
+    out = [a[..., i, 0, None] * u[0] + a[..., i, 1, None] * u[1]
+           + a[..., i, 2, None] * u[2] for i in range(3)]
+    return out if extra is None else [o + e for o, e in zip(out, extra)]
+
+
+def flow_and_step_from_moments_lanes(Mom, y, center, ell, nnz,
+                                     p: CvoParams):
+    """The moment-form epilogue over leading lane axes: (omega, v, nnz, B,
+    C, D, E) from Mom (..., M, 35), y (..., M, 3), center (..., 3), ell
+    (...). The JAX package's flow_and_step_from_moments term for term (the
+    xi{k}z from the powers of skew(omega), each coefficient the sum over
+    the monomials of the moments' dot products, added in the same order),
+    with the products of 3-vectors and 3x3 matrices written out per
+    component and every sum over the moving points by sum_pairwise."""
+    M0 = Mom[..., 0]
+    yc = [y[..., c] for c in range(3)]
+    dy = [yc[c] - center[..., c, None] for c in range(3)]
+    # D_j = sum_i A_ij (x_i - y_j): locally small; v = -(1/d) sum_j D_j,
+    # omega = (1/c) sum_j D_j x y_j
+    Dj = [Mom[..., 1 + c] - dy[c] * M0 for c in range(3)]
+    s = sum_pairwise(torch.stack(Dj + _cross3(Dj, yc), dim=-2))
+    v = -s[..., :3] / p.d
+    omega = s[..., 3:] / p.c
+
+    oh = se3.skew(omega)
+    oh2 = _mat3(oh, oh)
+    oh3 = _mat3(oh2, oh)
+    oh4 = _mat3(oh3, oh)
+    vc = [v[..., c, None] for c in range(3)]
+    xiz = _matvec3(oh, yc, vc)
+    xi2z = _matvec3(oh2, yc, _matvec3(oh, vc))
+    xi3z = _matvec3(oh3, yc, _matvec3(oh2, vc))
+    xi4z = _matvec3(oh4, yc, _matvec3(oh3, vc))
+    tc = (1.0 / (2.0 * ell * ell))[..., None]
+    two_tc = 2.0 * tc
+
+    def affine(const, u):
+        # const_j + (-2tc u_j) . xt
+        return {(): const, (0,): -two_tc * u[0], (1,): -two_tc * u[1],
+                (2,): -two_tc * u[2]}
+
+    beta = affine(two_tc * _dot3(xiz, dy), xiz)
+    gamma = affine(-tc * _dot3(xiz, xiz) + two_tc * _dot3(xi2z, dy), xi2z)
+    delta = affine(-two_tc * _dot3(xiz, xi2z) + two_tc * _dot3(xi3z, dy),
+                   xi3z)
+    epsil = affine(-tc * (_dot3(xi2z, xi2z) + 2.0 * _dot3(xiz, xi3z))
+                   + two_tc * _dot3(xi4z, dy), xi4z)
+    polys = _quartic_polys(beta, gamma, delta, epsil)
+    # every monomial term's sum over the moving points in one call, then
+    # each coefficient's terms added in the polynomial's order
+    dots = sum_pairwise(torch.stack(
+        [coef * Mom[..., _MONO_INDEX[k]] for poly in polys
+         for k, coef in poly.items()], dim=-2))
+    coefs, first = [], 0
+    for poly in polys:
+        acc = dots[..., first]
+        for i in range(first + 1, first + len(poly)):
+            acc = acc + dots[..., i]
+        coefs.append(acc)
+        first += len(poly)
+    return (omega, v, nnz) + tuple(coefs)
+
+
+def flow_and_step_from_A(A, keep, y, U, center, ell, p: CvoParams):
+    """(omega, v, nnz, B, C, D, E) of one lane from its kernel matrix A
+    (N, M) and keep mask: the moment product, the kept-pair count and
+    flow_and_step_from_moments, the JAX package's epilogue term for
+    term."""
+    return flow_and_step_from_moments(
+        moment_product(A, U), y, center, ell,
+        torch.sum(keep, dtype=torch.int32), p)
+
+
+def flow_and_step_moments(x, y, ckg, U, center, ell, p: CvoParams):
+    """One iteration of the JAX package's xla align (compute_flow and
+    compute_step_size, cvo.cpp:187-334) in moment form, one lane: (omega,
+    v, nnz, B, C, D, E). x/U/center from the fixed cloud
+    (step_moment_basis), y the moved positions of the iteration, ckg from
+    color_kernel_gated."""
+    A, keep = cvo_kernel_from_color(x, y, ckg, ell, p)
+    return flow_and_step_from_A(A, keep, y, U, center, ell, p)
+
+
+def flow_and_step_moments_lanes(x, y, ckg, U, center, ell, p: CvoParams):
+    """flow_and_step_moments over leading lane axes (every output with
+    them), through flow_and_step_from_moments_lanes: each lane's result is
+    that of its one-lane call of this function whatever the lane count."""
+    A, keep = cvo_kernel_from_color(x, y, ckg, ell, p)
+    return flow_and_step_from_moments_lanes(
+        moment_product(A, U), y, center, ell,
+        torch.sum(keep, dim=(-2, -1), dtype=torch.int32), p)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ S alignments run together, each lane as its solo run (vmap-of-while
 semantics: a lane that has stopped is frozen while the others iterate).
 The JAX package vmaps engine.align; the port writes the lane axis out:
 under 'pallas' the S align loops are the lanes of one align_fused launch
-(cvo.kernels.align_fused_lanes), one CUDA kernel for the whole batch.
-make_sharded_align splits the lanes over the shards of a mesh.
+(cvo.kernels.align_fused_lanes), one CUDA kernel for the whole batch; under
+'xla' one lane program (engine.align_loop_lanes: one (S, N, M) pass and one
+epilogue per iteration). make_sharded_align splits the lanes over the
+shards of a mesh.
 """
 
 from __future__ import annotations
@@ -17,16 +19,16 @@ from .mesh import Mesh
 
 
 def _batch_backend(backend: str) -> str:
-    """The align backend of a batch of lanes. 'pallas' and 'pallas_iter'
-    run as the lanes of one align_fused launch ('pallas'), as the JAX
-    package routes them (its per-iteration kernels do not vmap). The JAX
-    package routes 'pallas_mom' to its XLA moment path, which the port does
-    not have (engine.check_backend): the port serves 'pallas_mom' lane by
-    lane through the solo moment path, so a batch under 'pallas_mom'
-    equals its solo 'pallas_mom' runs exactly, where the JAX package's
-    equals its solo 'xla' runs."""
+    """The align backend of a batch of lanes, routed as the JAX package
+    routes it (its per-iteration kernels do not vmap,
+    multi_sequence._batch_backend): 'pallas_mom' to 'xla', the same
+    moment-form algebra as one lane program; 'pallas' and 'pallas_iter' to
+    'pallas', the lanes of one align_fused launch. So a batch under
+    'pallas_mom' equals its solo 'xla' runs."""
     engine.check_backend(backend)
-    return "pallas" if backend in ("pallas", "pallas_iter") else backend
+    if backend == "pallas_mom":
+        return "xla"
+    return "pallas" if backend == "pallas_iter" else backend
 
 
 def batched_align(fixed: engine.PointCloud, moving: engine.PointCloud, R0,

@@ -11,8 +11,8 @@ pending requests of one kind in one batched dispatch (cvo.engine's lane
 functions). Under 'pallas' (and 'pallas_iter', parallel.batch's routing)
 a round of S frame requests is two align_fused lane launches and two suite
 lane launches, where S solo frames are 4 S launches; under 'pallas_mom'
-the aligns run lane by lane through the solo moment path and the suites as
-lane launches.
+(routed to 'xla', as the JAX package routes it) and 'xla' the aligns run as
+one lane program each and the suites as lane launches.
 
 The lockstep tracker drives the generators itself, so the trackers' own
 speculative executors never run (checked every frame): a lockstep run

@@ -400,28 +400,29 @@ def test_run_odometry_matches_jax(tmp_path, monkeypatch):
 def test_default_backend_reads_environment(monkeypatch):
     monkeypatch.delenv("CVO_SLAM_BACKEND", raising=False)
     assert tengine.default_backend() == "pallas_mom"
-    for name in ("pallas", "pallas_iter", "pallas_mom"):
+    for name in ("pallas", "pallas_iter", "pallas_mom", "xla"):
         monkeypatch.setenv("CVO_SLAM_BACKEND", name)
         assert tengine.default_backend() == name
+        assert tengine.check_backend(name) == name
         assert tengine.Cvo(TP).backend == name
-    for name in ("xla", "bogus"):
-        monkeypatch.setenv("CVO_SLAM_BACKEND", name)
-        with pytest.raises(ValueError, match="pallas_mom, pallas, "
-                                             "pallas_iter"):
-            tengine.default_backend()
+    monkeypatch.setenv("CVO_SLAM_BACKEND", "bogus")
+    with pytest.raises(ValueError, match="pallas_mom, pallas, "
+                                         "pallas_iter, xla"):
+        tengine.default_backend()
     x = torch.zeros((8, 3))
     cloud = tengine.PointCloud(x, torch.zeros((8, 5)),
                                torch.zeros(8, dtype=torch.bool))
     with pytest.raises(ValueError):
-        tengine.align(cloud, cloud, np.eye(3), np.zeros(3), 0.1, TP, "xla")
+        tengine.align(cloud, cloud, np.eye(3), np.zeros(3), 0.1, TP,
+                      "bogus")
     with pytest.raises(ValueError):
-        tengine.Cvo(TP, backend="xla")
+        tengine.Cvo(TP, backend="bogus")
 
 
 def test_lc_verify_routes_pallas_iter_to_align_fused(monkeypatch):
     """Loop-closure verification under pallas_iter aligns through
-    align_fused (the JAX package's _vmap_backend routing), for every
-    candidate that passes RANSAC."""
+    align_fused, under pallas_mom through the xla align (the JAX package's
+    _vmap_backend routing), for every candidate that passes RANSAC."""
     from cvo_slam_tpu_torch.backend import loop_closure
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
     seen = []
@@ -439,7 +440,7 @@ def test_lc_verify_routes_pallas_iter_to_align_fused(monkeypatch):
     monkeypatch.setattr(tengine, "lc_verify_batch", verify)
     monkeypatch.setattr(loop_closure, "Matcher", _OneMatch)
     for env, want in (("pallas_iter", "pallas"), ("pallas", "pallas"),
-                      ("pallas_mom", "pallas_mom")):
+                      ("pallas_mom", "xla"), ("xla", "xla")):
         monkeypatch.setenv("CVO_SLAM_BACKEND", env)
         detect = loop_closure.make_loop_detector(
             CAMERA_PRESETS["TUM1"], SlamConfig.default_shipped())

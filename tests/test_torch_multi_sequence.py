@@ -120,8 +120,10 @@ _port_runs = {}
 
 
 def port_runs(folders, backend):
-    """The port's lockstep and solo runs on `backend` (CPU, speculation
-    off as lockstep has it), made once per backend and sequences."""
+    """The port's lockstep run on `backend` and its solo runs on the
+    backend a batch routes it to (batch._batch_backend: pallas_mom's lanes
+    are xla lanes, as in the JAX package), on the CPU with speculation off
+    as lockstep has it; made once per backend and sequences."""
     key = (backend, tuple(folders))
     if key not in _port_runs:
         from cvo_slam_tpu_torch.app.run_slam import build_tracker
@@ -134,7 +136,7 @@ def port_runs(folders, backend):
                                                   device="cpu")
         got = _lockstep(mst, frames)
         with pytest.MonkeyPatch.context() as m:
-            m.setenv("CVO_SLAM_BACKEND", backend)
+            m.setenv("CVO_SLAM_BACKEND", batch._batch_backend(backend))
             m.setenv("CVO_SLAM_SPECULATE", "0")
             solo = _solo(lambda: build_tracker(cam, cfg, device="cpu"),
                          frames)
@@ -202,17 +204,19 @@ def test_lockstep_matches_jax(sequences, jax_rows):
 
 def test_batch_backend_routing(monkeypatch):
     """pallas and pallas_iter run as the lanes of one align_fused launch;
-    pallas_mom lane by lane through the solo moment path (the port has no
-    xla); unknown names raise. The executor and batched_align take the
-    routed backend."""
+    pallas_mom and xla as one xla lane program (the JAX package's routing);
+    unknown names raise. The executor and batched_align take the routed
+    backend."""
     assert batch._batch_backend("pallas") == "pallas"
     assert batch._batch_backend("pallas_iter") == "pallas"
-    assert batch._batch_backend("pallas_mom") == "pallas_mom"
-    for name in ("xla", "bogus"):
-        with pytest.raises(ValueError):
-            batch._batch_backend(name)
+    assert batch._batch_backend("pallas_mom") == "xla"
+    assert batch._batch_backend("xla") == "xla"
+    with pytest.raises(ValueError):
+        batch._batch_backend("bogus")
     assert multi_sequence._BatchExecutor(None, "pallas_iter").backend \
         == "pallas"
+    assert multi_sequence._BatchExecutor(None, "pallas_mom").backend \
+        == "xla"
     with pytest.raises(ValueError, match="lanes of one launch"):
         multi_sequence.MultiSequenceTracker(
             from_reference(CAM), from_reference(_cfg(OnlyTracking=True)),
@@ -225,6 +229,11 @@ def test_batch_backend_routing(monkeypatch):
     align = tengine.align
     monkeypatch.setattr(tengine, "align",
                         lambda *a: solo.append(a[-1]) or align(*a))
+    programs = []
+    loop_lanes = tengine.align_loop_lanes
+    monkeypatch.setattr(tengine, "align_loop_lanes",
+                        lambda f, y0, states, p: programs.append(len(states))
+                        or loop_lanes(f, y0, states, p))
     rng = np.random.default_rng(0)
     pos = torch.as_tensor(rng.uniform(-1, 1, (2, 64, 3)).astype(np.float32))
     feat = torch.as_tensor(rng.uniform(0, 1, (2, 64, 5)).astype(np.float32))
@@ -233,12 +242,13 @@ def test_batch_backend_routing(monkeypatch):
     R0, T0 = torch.eye(3).expand(2, 3, 3), torch.zeros(2, 3)
     ell0 = torch.full((2,), 0.1)
     p = from_reference(SlamConfig.default_shipped()).cvo
-    for backend, want in (("pallas_iter", ([2], [])),
-                          ("pallas_mom", ([], ["pallas_mom"] * 2))):
+    for backend, want in (("pallas_iter", ([2], [], [])),
+                          ("pallas_mom", ([], [], [2]))):
         calls.clear()
         solo.clear()
+        programs.clear()
         res = batch.batched_align(cloud, cloud, R0, T0, ell0, p, backend)
-        assert (calls, solo) == want, backend
+        assert (calls, solo, programs) == want, backend
         assert res.transform.shape == (2, 4, 4)
 
 

@@ -1,9 +1,9 @@
-"""Port parity, lockstep tracking under pallas_mom (the aligns lane by lane
-through the solo moment path, the suites as lanes): against the port's own
-solo runs (exactly) and the JAX package's lockstep (xla, where it routes
-pallas_mom), on the first two sequences of tests/test_multi_sequence.py
-(the third costs the CPU run ~20 s more; tests/test_torch_multi_sequence.py
-takes all three under pallas)."""
+"""Port parity, lockstep tracking under pallas_mom, which a batch routes to
+xla as the JAX package does (each align one xla lane program, the suites
+as lanes): against the port's own solo xla runs (exactly) and the JAX
+package's lockstep (xla), on the first two sequences of
+tests/test_multi_sequence.py (the third costs the CPU run ~20 s more;
+tests/test_torch_multi_sequence.py takes all three under pallas)."""
 
 import pytest
 
@@ -18,8 +18,8 @@ def jax_rows(sequences):  # noqa: F811
 
 
 def test_lockstep_equals_solo(sequences):  # noqa: F811
-    """pallas_mom: the lockstep run equals the two solo runs bit for
-    bit."""
+    """pallas_mom: the lockstep run (xla lanes) equals the two solo xla
+    runs bit for bit."""
     check_equals_solo(*port_runs(sequences[:2], "pallas_mom"))
 
 
