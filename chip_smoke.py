@@ -60,7 +60,20 @@ Phases; any failure exits non-zero:
      S solo launches';
      flow and step_coeffs lie on no path (only the JAX package's tests
      call them): their launches are those of these checks, and each
-     flow_and_step launch of the main path runs both passes once more;
+     flow_and_step launch of the main path runs both passes once more.
+     Tile skipping (the gate sweeps of the moment kernel, flow_and_step,
+     flow, step_coeffs and align_fused skip the tile pairs whose boxes lie
+     beyond the gate radius): at CAP 3072 and 3000, ell 0.15 and 0.06,
+     each skipping launch bitwise equal to its tile_skip=False launch
+     (outputs and keep bitmasks; align_fused on frames 0 -> 1 from the
+     identity at each ell; its lanes at CAP 3072, frames k -> k + 1 on
+     distinct fixed clouds and frames 1 .. against frame 0), at least one
+     tile pair skipped in each (in every lane), the unskipped launch one
+     sweep's tile pairs (align_fused: one a evaluated iteration), and the
+     count the kernel reports equal to kernels.tile_flags_plain's where it
+     sweeps the clouds as given; the skip fraction, and the device ms with
+     and without skipping at CAP 3072 (in turns: skipping, not, not,
+     skipping);
   2m. the sharded align (parallel.batch.make_sharded_align): SHARDED_LANES
      lanes on the frame-0 cloud (the moving clouds frames 1 ..) over a
      mesh of SHARDS shards on the one card, one align_fused_lanes launch
@@ -99,6 +112,9 @@ Phases; any failure exits non-zero:
   3c. tracking with CVO_SLAM_BACKEND=pallas_iter on the first 8 frames:
      flow_and_step at least once per align iteration, position error
      below 0.05 m;
+  3s. phases 3, 3b and 3c again with every main-path wrapper's
+     tile_skip=False (the sweeps compute every tile pair): each trajectory
+     equal to the skipping run's line for line;
   4. SLAM: the whole system (SlamConfig.default_shipped(), OnlyTracking
      False: tracking, keyframe graph, ORB + BoW, loop closure, windowed BA,
      final BA, frame-list refinement) through app.run_slam.run on a
@@ -180,6 +196,11 @@ Phases; any failure exits non-zero:
      host create_pointcloud: count and pixel set exact, positions rtol
      1e-5 / atol 1e-6, features rtol 1e-4 / atol 1e-3 (HSV one quantum on
      H and S); ms per frame of both;
+  4l. place recognition (eval.place_recognition: 43 keyframes of three
+     aliased places at 160x120, the growing vocabulary retrained along the
+     way, one detect() under the default backend on the card): at least
+     one accepted edge to the revisited place, none to the decoys (the
+     JAX package's tests/test_place_recognition.py bars);
   5. one engine.frame_step under torch.profiler on each backend with a
      kernel of its own (xla's device work is phase 2x's): device
      busy share, kernel launches per frame and per align iteration, and
@@ -187,25 +208,26 @@ Phases; any failure exits non-zero:
   6. a JSON line with every kernel's numbers, the run's seconds, the card
      line, and last {"ok": true, "device": {...}}.
 Each phase prints its wall time. No earlier phase is cut in depth: the
-whole run took 662.2 s of the 1200 s limit on an NVIDIA H100 80GB HBM3
-at 700.00 W with phases 2m and 4h-4k (482-549 s before them; its largest
-parts are phase 4g's generation of 220 frames, ~200 s, and phase 3e's
-lockstep runs, ~85 s).
+whole run took 661.9-756.0 s of the 1200 s limit on an NVIDIA H100 80GB
+HBM3 at 700.00 W with phases 3s and 4l and the tile-skip checks (642.0 s
+before them; its largest parts are phase 4g's generation of 220 frames,
+~200 s, and phase 3e's lockstep runs, ~100 s).
 
 The bound of a kernel is the larger of issued fp32 instructions / 33.5 T
 instructions/s (132 SMs x 128 lanes x 1.98 GHz on an H100 SXM at 700 W)
 and bytes / 3.35 TB/s, with the instructions counted from this run's data
-(pairs inside each gate). Every kernel compiles with -fmad=false, so each
-add, multiply, compare and fused multiply-add of an explicit FMA chain is
-one instruction (67 TFLOP/s would count an FMA as two operations and
-every other instruction as one, and so halve the bound of these kernels,
-which issue few FMAs). The
-per-pair align kernels need the gate sweep once per iteration (the kept
-pairs can be carried from one pass to the next), so it is counted once per
-flow_and_step call, beside each pass's work on the kept pairs. For
-align_fused, that count is taken at every iteration of the plain version's
-run on the same pair (its poses and ells), averaged, and multiplied by the
-iterations the kernel evaluated.
+(pairs inside each gate; for the skipping sweeps only the pairs of the
+tile pairs they compute, kernels.tile_flags_plain). Every kernel compiles
+with -fmad=false, so each add, multiply, compare and fused multiply-add of
+an explicit FMA chain is one instruction (67 TFLOP/s would count an FMA as
+two operations and every other instruction as one, and so halve the bound
+of these kernels, which issue few FMAs). The per-pair align kernels need
+the gate sweep once per iteration (the kept pairs can be carried from one
+pass to the next), so it is counted once per flow_and_step call, beside
+each pass's work on the kept pairs. For align_fused, that count is taken
+at every iteration of the plain version's run on the same pair (its poses
+and ells), averaged, and multiplied by the iterations the kernel
+evaluated.
 """
 
 from __future__ import annotations
@@ -255,8 +277,10 @@ ALIGN_PAIRS_ITERS_SPREAD = 15
 # held as far apart as the pallas_mom align lies from its own plain
 # version on these pairs (1-29 iterations, up to 2.2e-3 m: chip_compare.py
 # kernels on an NVIDIA H100 80GB HBM3, PERF.md §6); the iterations are
-# printed, not held (frames 0 -> 1 stop after 24 xla iterations on the
-# card, 58 on the CPU, 47 in the JAX package's xla on the CPU)
+# printed, not held: frames 0 -> 1 stop after 24 xla iterations on the
+# card, 45-58 on the CPU by thread count and 47 in the JAX package's xla,
+# each stop the se3-distance rule on an oscillating flow
+# (tests/test_torch_xla_orders.py)
 XLA_PAIRS_GAP = 2.2e-3
 # the lanes of align_fused on the shared frame-0 cloud (phase 2)
 LANE_COUNTS = (1, 2, 4, 10)
@@ -375,12 +399,26 @@ def device_time_ms(fn, names, reps=20):
 #   compare); a kept pair adds 35 multiplies and 35 adds into the moments.
 #   suite: its four pair sets, each as pair stats counts it (below).
 
+def live_pairs(rows, m_rows, cols, m_cols, ell, p):
+    """(rows, cols) bool: the pairs of the tile pairs a skipping gate
+    sweep computes (kernels.tile_flags_plain with the kernels' slack; rows
+    in the kernels' work items, columns in tiles of KEEP_WORD)."""
+    from cvo_slam_tpu_torch.cvo import kernels
+    tile = _geometry_rows()
+    flags = kernels.tile_flags_plain(rows, m_rows, cols, m_cols, ell, tile,
+                                     kernels.KEEP_WORD, p, slack=True)
+    n, m = rows.shape[0], cols.shape[0]
+    return flags.repeat_interleave(tile, 0)[:n].repeat_interleave(
+        kernels.KEEP_WORD, 1)[:, :m]
+
+
 def moment_counts(x, fx, mx, y, fy, my, ell, p):
     import torch
     from cvo_slam_tpu_torch.ops import pairwise
     d2 = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
     d2c = ((fx[:, None, :] - fy[None, :, :]) ** 2).sum(-1)
-    valid = mx[:, None] & my[None, :]
+    # the pairs of the computed tile pairs (rows: the moving points)
+    valid = mx[:, None] & my[None, :] & live_pairs(y, my, x, mx, ell, p).T
     geo = valid & (d2 < pairwise.d2_threshold(torch.tensor(ell), p).item())
     gate = geo & (d2c < pairwise.d2_color_threshold(p))
     a = (p.sigma ** 2 * p.c_sigma ** 2) * torch.exp(torch.clamp(
@@ -443,7 +481,8 @@ def flow_step_counts(x, fx, mx, y, fy, my, ell, p, passes=("flow", "step")):
     the outputs are 10 floats and 1 int."""
     import torch
     from cvo_slam_tpu_torch.ops import pairwise
-    valid = mx[:, None] & my[None, :]
+    # the pairs of the computed tile pairs (rows: the fixed points)
+    valid = mx[:, None] & my[None, :] & live_pairs(x, mx, y, my, ell, p)
     d2 = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
     geo = valid & (d2 < pairwise.d2_threshold(torch.tensor(ell), p).item())
     d2c = ((fx[:, None, :] - fy[None, :, :]) ** 2).sum(-1)
@@ -1096,6 +1135,275 @@ def lane_checks(seq, p, report):
                                     bound_ms=b)
         entry.update(ms=t_k, device_ms=t_d, solo_device_ms=t_s, plain_ms=t_p,
                      bound_ms=b, bound_by=by, lanes=S)
+
+
+def _skip_pair(name, run, cap, ell):
+    """Runs run(tile_skip) -> (outputs, launch_info) skipping and not;
+    fails unless the outputs are bitwise equal and the skipping launch
+    computed fewer tile pairs than the unskipped one.
+    Returns (tiles computed, tiles of the unskipped launch, both
+    launch_info dicts)."""
+    import torch
+    got, info = run(True)
+    want, full_info = run(False)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the skipping launch differs from the "
+                             f"unskipped one (CAP {cap}, ell {ell})")
+    tiles = info["tiles"].sum().item()
+    full = full_info["tiles"].sum().item()
+    if not tiles < full:
+        raise AssertionError(f"{name}: no tile pair skipped ({tiles} of "
+                             f"{full}; CAP {cap}, ell {ell})")
+    return tiles, full, info, full_info
+
+
+def skip_checks(clouds, seq, p, report):
+    """Phase 2, tile skipping (module docstring): every skipping launch
+    against its tile_skip=False launch, bitwise, at CAP 3072 / 3000 and
+    ell 0.15 / 0.06; the tile pairs computed (the kernels' count) against
+    kernels.tile_flags_plain where the kernel sweeps fixed clouds; the skip
+    fraction and the device ms with and without skipping at CAP 3072.
+    seq: the sequence's first ALIGN_PAIRS + 1 clouds at CAP 3072 (the
+    lanes run there only: a stack of lanes needs 16-byte lane strides,
+    which CAP 3000's masks do not have)."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.ops import pairwise
+    rows = _geometry_rows()
+    fracs = {}
+
+    def record(name, cap, ell, tiles, full, plain=None, pairs=None):
+        # one sweep's pairs, unskipped; skipping, tile_flags_plain's count
+        if pairs is not None and full != pairs or \
+                plain is not None and tiles != plain:
+            raise AssertionError(f"{name}: {tiles} tile pairs computed of "
+                                 f"{full} (tile_flags_plain {plain}, a sweep"
+                                 f" {pairs}; CAP {cap}, ell {ell})")
+        fracs[(name, cap, ell)] = 1.0 - tiles / full
+        if cap == CAPS[0]:
+            report[name].setdefault("skip_fraction", {})[str(ell)] = \
+                1.0 - tiles / full
+
+    for cap, (c0, c1) in clouds.items():
+        (x, fx, mx), (y, fy, my) = c0, c1
+        center, U = pairwise.step_moment_basis(x, mx)
+        U = U.contiguous()
+        args = (x, y, fx, fy, mx, my)
+        for ell in ELLS:
+            e = torch.tensor(ell, device=x.device)
+
+            def moment(skip):
+                info, bits = {}, torch.empty(
+                    (-(-x.shape[0] // kernels.KEEP_WORD), y.shape[0]),
+                    dtype=torch.int32, device=x.device)
+                out = kernels.moment_pass_cuda(*args, U, e, p, keep_bits=bits,
+                                               launch_info=info,
+                                               tile_skip=skip)
+                return out + (bits,), info
+            t, f, info, _ = _skip_pair("moment_flow_step", moment, cap, ell)
+            record("moment_flow_step", cap, ell, t, f, int(
+                kernels.tile_flags_plain(y, my, x, mx, e, rows,
+                                         kernels.KEEP_WORD, p,
+                                         slack=True).sum()),
+                   info["tile_pairs"])
+            plain = int(kernels.tile_flags_plain(
+                x, mx, y, my, e, rows, kernels.KEEP_WORD, p,
+                slack=True).sum())
+
+            def both(skip):
+                info, bits = {}, torch.empty(
+                    (-(-y.shape[0] // kernels.KEEP_WORD), x.shape[0]),
+                    dtype=torch.int32, device=x.device)
+                out = kernels.flow_and_step_cuda(*args, e, p, keep_bits=bits,
+                                                 launch_info=info,
+                                                 tile_skip=skip)
+                return out + (bits,), info
+            t, f, info, _ = _skip_pair("flow_and_step", both, cap, ell)
+            record("flow_and_step", cap, ell, t, f, plain,
+                   info["tile_pairs"])
+
+            def flow(skip):
+                info = {}
+                return kernels.flow_cuda(*args, e, p, launch_info=info,
+                                         tile_skip=skip), info
+            t, f, info, _ = _skip_pair("flow", flow, cap, ell)
+            record("flow", cap, ell, t, f, plain, info["tile_pairs"])
+            omega, v, _ = kernels.flow_plain(*args, e, p)
+
+            def step(skip):
+                info = {}
+                return kernels.step_coeffs_cuda(*args, omega, v, e, p,
+                                                launch_info=info,
+                                                tile_skip=skip), info
+            t, f, info, _ = _skip_pair("step_coeffs", step, cap, ell)
+            record("step_coeffs", cap, ell, t, f, plain, info["tile_pairs"])
+
+            # align_fused on frames 0 -> 1 from the identity at this ell
+            def align(skip):
+                info = {}
+                out = kernels.align_fused_cuda(
+                    x, fx, mx, y, fy, my, torch.eye(3, device=x.device),
+                    torch.zeros(3, device=x.device), e, p, launch_info=info,
+                    tile_skip=skip)
+                return out, info
+            t, f, info, _ = _skip_pair("align_fused", align, cap, ell)
+            iters = int(kernels.align_fused_cuda(
+                x, fx, mx, y, fy, my, torch.eye(3, device=x.device),
+                torch.zeros(3, device=x.device), e, p)[3])
+            if f != min(iters + 1, p.max_iter) * info["tile_pairs"]:
+                raise AssertionError(f"align_fused: {f} tile pairs unskipped"
+                                     f" over {iters} iterations")
+            record("align_fused", cap, ell, t, f)
+    # the lanes: frames k -> k + 1 (distinct fixed clouds) and frames 1 ..
+    # against frame 0 (one fixed cloud), ALIGN_PAIRS lanes each, at both
+    # start ells
+    S = ALIGN_PAIRS
+    cap, dev = CAPS[0], seq[0][0].device
+    for ell in ELLS:
+        init = (torch.eye(3, device=dev).expand(S, 3, 3).contiguous(),
+                torch.zeros(S, 3, device=dev),
+                torch.full((S,), ell, device=dev), p)
+        for fixed, what in ((_stack(seq[:S]), "distinct"),
+                            (seq[0], "shared")):
+            largs = (*fixed, *_stack(seq[1:S + 1]), *init)
+
+            def lanes(skip):
+                info = {}
+                return kernels.align_fused_lanes_cuda(
+                    *largs, launch_info=info, tile_skip=skip), info
+            name = f"align_fused_lanes ({what} fixed clouds)"
+            t, f, info, full_info = _skip_pair(name, lanes, cap, ell)
+            per_lane = [int(a) for a in info["tiles"]]
+            full_lane = [int(a) for a in full_info["tiles"]]
+            if not all(a < b for a, b in zip(per_lane, full_lane)):
+                raise AssertionError(f"{name}: a lane skipped nothing: "
+                                     f"{per_lane} of {full_lane} (CAP "
+                                     f"{cap}, ell {ell})")
+            print(f"align_fused {S} lanes on {what} fixed clouds, CAP "
+                  f"{cap}, ell {ell}: skipping launch bitwise equal to "
+                  f"the unskipped one; tile pairs computed per lane "
+                  f"{per_lane} of {full_lane}", flush=True)
+            if what == "distinct":
+                record("align_fused_lanes", cap, ell, t, f)
+    print("tile skipping, skipping launches bitwise equal to the unskipped "
+          "ones, skip fraction (of the gate sweep's tile pairs): "
+          + "; ".join(f"{n} CAP {c} ell {e} {v:.1%}"
+                      for (n, c, e), v in fracs.items()), flush=True)
+
+    # device ms with and without skipping, CAP 3072, in turns
+    (x, fx, mx), (y, fy, my) = clouds[CAPS[0]]
+    center, U = pairwise.step_moment_basis(x, mx)
+    U = U.contiguous()
+    args = (x, y, fx, fy, mx, my)
+    calls = {}
+    for ell in ELLS:
+        e = torch.tensor(ell, device=x.device)
+        omega, v, _ = kernels.flow_plain(*args, e, p)
+        calls[("moment_flow_step", ell)] = lambda s, e=e: \
+            kernels.moment_pass_cuda(*args, U, e, p, tile_skip=s)
+        calls[("flow_and_step", ell)] = lambda s, e=e: \
+            kernels.flow_and_step_cuda(*args, e, p, tile_skip=s)
+        calls[("flow", ell)] = lambda s, e=e: kernels.flow_cuda(
+            *args, e, p, tile_skip=s)
+        calls[("step_coeffs", ell)] = lambda s, e=e, o=omega, w=v: \
+            kernels.step_coeffs_cuda(*args, o, w, e, p, tile_skip=s)
+    e0 = torch.tensor(ELLS[0], device=x.device)
+    calls[("align_fused", ELLS[0])] = lambda s: kernels.align_fused_cuda(
+        x, fx, mx, y, fy, my, torch.eye(3, device=x.device),
+        torch.zeros(3, device=x.device), e0, p, tile_skip=s)
+    largs = (*_stack(seq[:S]), *_stack(seq[1:S + 1]),
+             torch.eye(3, device=x.device).expand(S, 3, 3).contiguous(),
+             torch.zeros(S, 3, device=x.device),
+             torch.full((S,), ELLS[0], device=x.device), p)
+    calls[("align_fused_lanes", ELLS[0])] = lambda s: \
+        kernels.align_fused_lanes_cuda(*largs, tile_skip=s)
+    for (name, ell), fn in calls.items():
+        reps = 5 if name.startswith("align") else 20
+        times = [_device_ms(lambda: fn(s), name, reps)
+                 for s in (True, False, False, True)]
+        on, off = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        print(f"{name} CAP {CAPS[0]} ell {ell}: device {on:.4f} ms with tile "
+              f"skipping, {off:.4f} ms without ({on / off:.2f}x; skip "
+              f"fraction {fracs[(name, CAPS[0], ell)]:.1%})", flush=True)
+        report[name].setdefault("device_ms_unskipped", {})[str(ell)] = off
+        report[name].setdefault("device_ms_skipping", {})[str(ell)] = on
+
+
+def _device_ms(fn, name, reps, tries=3):
+    """Device ms per call of fn's kernels (DEVICE_NAMES[name]) from one
+    torch.profiler window of reps + 1 calls, the last reps calls' kernels
+    in start order. After phase 2's other windows the profiler was seen to
+    drop the first kernel of every window (the moment kernel's keep pass,
+    19 of 20), so the first call is not counted and a window that lost no
+    more than its kernels is kept; up to `tries` windows, else fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    # one launch per kernel name per call (phase 2's launch bars)
+    k, seen = len(DEVICE_NAMES[name]), []
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + 1):
+                fn()
+            torch.cuda.synchronize()
+        ours = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and any(n in e.name for n in DEVICE_NAMES[name])),
+                      key=lambda e: e.time_range.start)
+        seen.append(len(ours))
+        if reps * k <= len(ours) <= (reps + 1) * k:
+            return sum(e.time_range.elapsed_us()
+                       for e in ours[-reps * k:]) / reps / 1e3
+    raise AssertionError(f"{name}: no profiler window held the last {reps} "
+                         f"calls' {reps * k} kernels (windows held {seen})")
+
+
+def _geometry_rows():
+    """Rows of a work item as the per-pair kernels' library reports them."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import kernels
+    return kernels._geometry(kernels.FLOW_AND_STEP, "flow_step_geometry",
+                             torch.device("cuda"))[2]
+
+
+@contextlib.contextmanager
+def unskipped():
+    """The block's kernel launches with tile_skip=False: every skipping
+    wrapper that the main path reaches computes every tile pair (the same
+    outputs bit for bit)."""
+    import functools
+    from cvo_slam_tpu_torch.cvo import kernels
+    saved = {n: getattr(kernels, n) for n in (
+        "moment_pass_cuda", "flow_and_step_cuda", "align_fused_cuda",
+        "align_fused_lanes_cuda")}
+    for n, fn in saved.items():
+        setattr(kernels, n, functools.partial(fn, tile_skip=False))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def place_recognition(root, card):
+    """Phase 4l: eval.place_recognition on the card (43 keyframes of three
+    aliased places, one detect() under the default backend): at least one
+    accepted edge to place 0, none to the decoys, the vocabulary retrained
+    at least 4 times with stale BoW vectors refreshed (the JAX package's
+    tests/test_place_recognition.py bars)."""
+    from cvo_slam_tpu_torch.eval import place_recognition as pr
+    out = pr.run(root, "cuda")
+    print(f"place recognition on {card}: {out['keyframes']} keyframes, "
+          f"vocabulary version {out['voc_version']} (stale BoW before "
+          f"detect: {out['stale']}); accepted {out['accepted']}, true "
+          f"{out['true']}, false {out['false']}; detect() returned "
+          f"{out['new_lc']}, farthest {out['farthest']}", flush=True)
+    if len(out["true"]) < 1 or out["false"] or out["voc_version"] < 4 \
+            or not out["stale"] or out["new_lc"] != len(out["accepted"]) \
+            or out["farthest"] != min(out["true"]):
+        raise AssertionError(f"place recognition: {out}")
 
 
 @contextlib.contextmanager
@@ -2284,6 +2592,7 @@ def main(argv=None) -> int:
             seq = sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1)
             align_checks(seq, p, report)
             lane_checks(seq, p, report)
+            skip_checks(clouds, seq, p, report)
         with phase("2m"):
             sharded_align(seq, p, report, card)
         with phase("2x"):
@@ -2311,7 +2620,22 @@ def main(argv=None) -> int:
               f"{np.mean(t_xla['t_frame']):.1f} / "
               f"{np.median(t_xla['t_frame']):.1f}", flush=True)
         with phase("3c"):
-            tracking(folder, gt, report, card, "pallas_iter", ITER_FRAMES)
+            t_iter = tracking(folder, gt, report, card, "pallas_iter",
+                              ITER_FRAMES)
+        with phase("3s"):
+            # phases 3, 3b, 3c with every sweep unskipped: the same
+            # trajectories, line for line
+            for backend, ref in (("pallas_mom", t_mom), ("pallas", fused),
+                                 ("pallas_iter", t_iter)):
+                with unskipped():
+                    again = tracking(folder, gt, report, card, backend,
+                                     len(ref["lines"]))
+                if again["lines"] != ref["lines"]:
+                    return fail(f"{backend}: tracking with the unskipped "
+                                f"sweeps differs from the skipping run")
+            print("tracking with every tile pair computed (pallas_mom, "
+                  "pallas, pallas_iter): trajectories equal to phases 3, 3b"
+                  " and 3c line for line", flush=True)
         with phase("3d"):
             spec = tracking(folder, gt, report, card, "pallas",
                             speculate="1")
@@ -2367,6 +2691,8 @@ def main(argv=None) -> int:
             two_processes(card)
         with phase("4k"):
             device_frontend(folder, card)
+        with phase("4l"):
+            place_recognition(os.path.join(folder, "places"), card)
         with phase("5"):
             for backend in ("pallas_mom", "pallas", "pallas_iter"):
                 profile_frame(clouds, p, backend)
@@ -2382,7 +2708,9 @@ def main(argv=None) -> int:
         report[name]["launches_from"] = "phase-2 checks"
         report[name]["passes_in_flow_and_step"] = \
             report["flow_and_step"]["launches"]
-    print(json.dumps({"kernels": list(report.values())}), flush=True)
+    # launch_info's counts are device tensors
+    print(json.dumps({"kernels": list(report.values())},
+                     default=lambda o: o.tolist()), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {

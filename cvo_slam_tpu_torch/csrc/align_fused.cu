@@ -34,9 +34,27 @@
 //      step 4's barrier, and pass 2 writes step partials only after the
 //      next pass-1 barrier.
 // The epilogue mirrors pallas_align.py:67-181 (and the plain ops/cubic,
-// ops/se3) with CUDA's acosf and cbrtf. Every tile is computed: the Pallas
-// kernel's tile skipping is left to a later optimisation (skipped tiles
-// hold no gated pair, so the result is the same).
+// ops/se3) with CUDA's acosf and cbrtf.
+//
+// Tile skipping. Pass 1 computes only the (row tile, column tile) pairs
+// whose boxes lie within the gate radius plus flow_step.cuh's rounding
+// slack; a skipped pair writes zero bitmask words (pass 2 then walks no
+// bit of it) and adds nothing to any partial, so iterations, ell, nnz and
+// the transform are those of the unskipped launch, bit for bit (skip = 0
+// keeps it reachable). The Pallas kernel takes its flags once per call
+// from the warm-start pose, for each ell of the anneal schedule, with the
+// radius widened by skip_margin, bounds the accumulated motion (rmax, cum)
+// and computes every tile once that bound passes the margin
+// (pallas_align.py:196-210, :379-382, :408-461): on a TPU the tile lists
+// must be fixed before the grid runs. Here every block already stages and
+// transforms the moving columns itself at each iteration (step 1), so the
+// column tile's box is taken from the transformed columns as warp 0 packs
+// them, and the row tile's box once per item: the flags are those of the
+// current pose and ell, with no margin, no motion bound and no fall-back,
+// and no launch or host work is added. Each block counts the tile pairs
+// its pass-1 items computed, lane by lane, and adds them to the lane's
+// count when the loop ends (integer atomics; block 0 zeroes the counts
+// before the first grid barrier).
 //
 // Lanes (vmap of the while loop): each lane keeps the solo plan
 // (cvo/kernels.plan_split), its own bitmask, flow, count and step
@@ -90,6 +108,7 @@ struct AlignParams {
   float anneal_value[3];
   int anneal_iter[3];
   int max_iter;
+  int skip;   // 1: tile skipping (flow_step.cuh); 0: every tile pair
 };
 
 // smallest positive real root of a s^3 + b s^2 + c s + d, else fallback;
@@ -283,6 +302,7 @@ align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
   __shared__ State st[L];
   __shared__ float wv[L][6], bcde[L][N_STEP];
   __shared__ int nnz_k[L];
+  __shared__ int tiles[L];   // the lanes' tile pairs this block computed
   __shared__ int running[L];
   __shared__ int n_running;
 
@@ -299,6 +319,8 @@ align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
     q.done = 0;
     q.iters = prm.max_iter;
     q.nnz = 0;
+    tiles[tid] = 0;
+    if (blockIdx.x == 0) out_n[3 * tid + 2] = 0;   // before any grid.sync
   }
   __syncthreads();
   if constexpr (LANES) {
@@ -313,13 +335,17 @@ align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
     for (int a = blockIdx.x; a < work; a += gridDim.x) {
       if constexpr (LANES) {
         const int l = running[a / items];
-        flow_item<true>(lane_clouds(cl, l, x_lane, sp.M), sp, a % items,
-                        pose_of(st[l]), st[l].ell, prm.k, s, rows, red,
-                        bits + l * lane_bits, fpart + l * N_FLOW * items,
-                        npart + l * items);
+        const int t = flow_item<true>(
+            lane_clouds(cl, l, x_lane, sp.M), sp, a % items, pose_of(st[l]),
+            st[l].ell, prm.k, prm.skip != 0, s, rows, red,
+            bits + l * lane_bits, fpart + l * N_FLOW * items,
+            npart + l * items);
+        if (tid == 0) tiles[l] += t;
       } else {
-        flow_item<true>(cl, sp, a, pose, st[0].ell, prm.k, s, rows, red,
-                        bits, fpart, npart);
+        const int t = flow_item<true>(cl, sp, a, pose, st[0].ell, prm.k,
+                                      prm.skip != 0, s, rows, red, bits,
+                                      fpart, npart);
+        if (tid == 0) tiles[0] += t;
       }
     }
     __threadfence();
@@ -360,13 +386,15 @@ align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
       break;
     }
   }
+  if (tid < (LANES ? lanes : 1) && tiles[tid] != 0)
+    atomicAdd(out_n + 3 * tid + 2, tiles[tid]);   // an integer count
   if (blockIdx.x == 0 && tid < (LANES ? lanes : 1)) {
     const State& q = st[tid];
     for (int i = 0; i < 9; ++i) out_f[13 * tid + i] = q.R[i];
     for (int i = 0; i < 3; ++i) out_f[13 * tid + 9 + i] = q.T[i];
     out_f[13 * tid + 12] = q.ell;
-    out_n[2 * tid] = q.iters;
-    out_n[2 * tid + 1] = q.nnz;
+    out_n[3 * tid] = q.iters;
+    out_n[3 * tid + 1] = q.nnz;
   }
 }
 
@@ -412,11 +440,14 @@ extern "C" int align_fused_geometry(int* out) {
 // of per_chunk column tiles. init (13 floats a lane, on the device): R0
 // (row-major), T0, ell0. hf (host, 14 floats): log_ratio, d2ct, two_cl2,
 // s2cs2, sp_thres, c, d, eps, eps_2, min_step, max_step, the 3 anneal
-// values; hi (host, 4 ints): the 3 anneal iterations, max_iter. Scratch a
-// lane, items = ceil(N/512) * chunks: bits ceil(M/32) * N words, fpart
-// 6 * items floats, npart items ints, spart 4 * items floats, lane after
-// lane. out_f (13 floats a lane): R, T, ell; out_n (2 ints a lane): iters,
-// nnz. info (host, 4 ints): grid, blocks per SM, SMs, work items of the
+// values; hi (host, 5 ints): the 3 anneal iterations, max_iter, skip (1:
+// tile skipping, 0: every tile pair; the outputs are the same bit for
+// bit). Scratch a lane, items = ceil(N/512) * chunks: bits ceil(M/32) * N
+// words, fpart 6 * items floats, npart items ints, spart 4 * items floats,
+// lane after lane. out_f (13 floats a lane): R, T, ell; out_n (3
+// ints a lane): iters, nnz, and the tile pairs pass 1 computed over the
+// lane's iterations (of ceil(N/512) * ceil(M/32) an iteration). info
+// (host, 4 ints): grid, blocks per SM, SMs, work items of the
 // launch. Returns the CUDA error code (0 = success); a card without
 // cooperative launch, or a kernel that fits no block on an SM, is refused
 // before anything runs.
@@ -465,6 +496,7 @@ extern "C" int align_fused_launch(
     prm.anneal_iter[i] = hi[i];
   }
   prm.max_iter = hi[3];
+  prm.skip = hi[4];
   Clouds cl{x, fx, mx, y0, fy, my};
   void* args[] = {(void*)&cl,    (void*)&x_lane, (void*)&sp,
                   (void*)&lanes, (void*)&init,   (void*)&prm,

@@ -35,18 +35,24 @@
 //      for 16-byte loads and staged with double-buffered cp.async;
 //   5. no tensor cores: the gate's d^2 must round as the FMA chain of the
 //      plain version (a TF32 or 3xTF32 product rounds otherwise and flips
-//      gates), and the kept-pair sums are too sparse for an MMA.
+//      gates), and the kept-pair sums are too sparse for an MMA;
+//   6. tile skipping, as the Pallas kernels skip (flow_step.cuh): the gate
+//      sweep computes only the (row tile, column tile) pairs whose boxes
+//      lie within the gate radius, plus a stated slack; the boxes are taken
+//      inside the kernel (rows once per item, each column tile as it is
+//      packed), so skipping adds no launch.
 // -fmad=false, no float atomics, integer counts; any capacity by masking.
 
 #include "flow_step.cuh"
 
 namespace {
 
-// pass 1: the item's partials and bitmask words; the last block sums the
-// partials into out_f[0:6] = omega, v and out_n[0] = nnz
+// pass 1: the item's partials and bitmask words, its computed tile pairs
+// added to out_n[3]; the last block sums the partials into out_f[0:6] =
+// omega, v and out_n[0] = nnz
 __global__ void __launch_bounds__(THREADS)
 flow_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr, Consts c,
-          float cc, float dd, unsigned* __restrict__ bits,
+          float cc, float dd, int skip, unsigned* __restrict__ bits,
           float* __restrict__ fpart, int* __restrict__ npart,
           float* __restrict__ out_f, int* __restrict__ out_n) {
   __shared__ Stage s;
@@ -55,8 +61,10 @@ flow_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr, Consts c,
   __shared__ float wv[6];
   __shared__ int nnz, last;
   const Pose none{};
-  flow_item<false>(cl, sp, blockIdx.x, none, *ell_ptr, c, s, rows, red,
-                   bits, fpart, npart);
+  const int tiles = flow_item<false>(cl, sp, blockIdx.x, none, *ell_ptr, c,
+                                     skip != 0, s, rows, red, bits, fpart,
+                                     npart);
+  if (threadIdx.x == 0) atomicAdd(out_n + 3, tiles);   // an integer count
   if (!last_block(out_n + 1, sp.items, &last)) return;
   finalize_flow(fpart, npart, sp.items, cc, dd, red, wv, &nnz);
   if (threadIdx.x < 6) out_f[threadIdx.x] = wv[threadIdx.x];
@@ -64,11 +72,12 @@ flow_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr, Consts c,
 }
 
 // pass 2 for the flow wv_in = (omega, v): from pass 1's bitmask (FROM_BITS)
-// or by its own gate sweep; the last block sums out_f[6:10] = B, C, D, E
+// or by its own gate sweep (its computed tile pairs added to out_n[3]); the
+// last block sums out_f[6:10] = B, C, D, E
 template <bool FROM_BITS>
 __global__ void __launch_bounds__(THREADS)
 step_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr,
-          const float* __restrict__ wv_in, Consts c,
+          const float* __restrict__ wv_in, Consts c, int skip,
           const unsigned* __restrict__ bits, float* __restrict__ spart,
           float* __restrict__ out_f, int* __restrict__ out_n) {
   __shared__ RowColours rows;
@@ -84,8 +93,9 @@ step_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr,
                      red, bits, spart);
   } else {
     __shared__ Stage s;
-    step_sweep_item(cl, sp, blockIdx.x, ell, w_v, w_v + 3, c, s, rows, red,
-                    spart);
+    const int tiles = step_sweep_item(cl, sp, blockIdx.x, ell, w_v, w_v + 3,
+                                      c, skip != 0, s, rows, red, spart);
+    if (threadIdx.x == 0) atomicAdd(out_n + 3, tiles);
   }
   if (!last_block(out_n + 2, sp.items, &last)) return;
   finalize_step(spart, sp.items, red, bcde);
@@ -118,19 +128,22 @@ extern "C" int flow_step_geometry(int* out) {
 // split (chunks chunks of per_chunk column tiles); returns the CUDA error
 // code of the launches (0 = success). Rows x/fx/mx (N), columns y/fy/my
 // (M, each 16-byte aligned). wv_in: omega, v (6 floats on the device) for
-// mode 2. Scratch, items = ceil(N/512) * chunks: bits ceil(M/32) * N words
+// mode 2. skip: 1 skips the tile pairs whose boxes lie beyond the gate
+// (flow_step.cuh), 0 computes every pair; the outputs are the same bit for
+// bit. Scratch, items = ceil(N/512) * chunks: bits ceil(M/32) * N words
 // (modes 0, 1; on return, pass 1's keep bitmask), fpart 6 * items
 // floats, npart items ints, spart 4 * items floats. out_f (10 floats):
-// omega, v, B, C, D, E; out_n (3 ints, zero on entry): nnz and the two
-// passes' tickets.
+// omega, v, B, C, D, E; out_n (4 ints, zero on entry): nnz, the two
+// passes' tickets and the tile pairs the gate sweep computed (of
+// ceil(N/512) * ceil(M/32)).
 // A mode writes only its own outputs.
 extern "C" int flow_and_step_launch(
     int mode, const float* x, const float* fx, const unsigned char* mx,
     const float* y, const float* fy, const unsigned char* my,
     const float* ell, int N, int M, int chunks, int per_chunk,
     float log_ratio, float d2ct, float two_cl2, float s2cs2, float sp_thres,
-    float c, float d, const float* wv_in, unsigned* bits, float* fpart,
-    int* npart, float* spart, float* out_f, int* out_n,
+    float c, float d, int skip, const float* wv_in, unsigned* bits,
+    float* fpart, int* npart, float* spart, float* out_f, int* out_n,
     cudaStream_t stream) {
   Split sp;
   if (mode < 0 || mode > 2 || !make_split(N, M, chunks, per_chunk, sp))
@@ -146,17 +159,18 @@ extern "C" int flow_and_step_launch(
   const Clouds cl{x, fx, mx, y, fy, my};
   cudaError_t err;
   if (mode != 2) {
-    flow_pass<<<sp.items, THREADS, 0, stream>>>(cl, sp, ell, k, c, d, bits,
-                                                fpart, npart, out_f, out_n);
+    flow_pass<<<sp.items, THREADS, 0, stream>>>(cl, sp, ell, k, c, d, skip,
+                                                bits, fpart, npart, out_f,
+                                                out_n);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (mode == 0) {
     step_pass<true><<<sp.items, THREADS, 0, stream>>>(
-        cl, sp, ell, out_f, k, bits, spart, out_f, out_n);
+        cl, sp, ell, out_f, k, skip, bits, spart, out_f, out_n);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   } else if (mode == 2) {
     step_pass<false><<<sp.items, THREADS, 0, stream>>>(
-        cl, sp, ell, wv_in, k, nullptr, spart, out_f, out_n);
+        cl, sp, ell, wv_in, k, skip, nullptr, spart, out_f, out_n);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

@@ -35,6 +35,43 @@
 // flight while tile t is computed), then packed so that one 16-byte load
 // brings (x, y, z, |y|^2) and two more the colour terms.
 //
+// Tile skipping (the Pallas kernels' _tile_bounds / _skip_flags,
+// pallas_kernels.py:449-473). The clouds are Morton-ordered by the
+// frontend, so a row tile and a 32-column tile each cover a compact
+// region. A sweep that skips takes the box of the item's rows (lo, hi per
+// coordinate over the rows that can pass a gate, and their largest squared
+// norm s: each warp's box as it loads its rows, the four combined by
+// thread 0 at the first tile) and the box of each column tile as warp 0
+// packs it: the columns as the gate sees them, so align_fused's boxes are
+// those of the columns transformed by the lane's current pose, and no
+// margin or motion bound is needed. Thread 0 decides each tile (one flag in
+// shared memory, published by the barrier that follows the packing), so
+// skipping adds no barrier. A (row tile, column tile) pair is computed only
+// if the squared gap between the two boxes, gap2 = sum_c max(lo_col -
+// hi_row, lo_row - hi_col, 0)^2, is below thr = d2t + 2^-18 ((d2t + s_row)
+// + s_col) (box_live; d2t = -2 ell^2 log(sp_thres / sigma^2) as the gate
+// computes it). A skipped pair sets no bit (its words are written as zeros)
+// and adds nothing to any partial, so every output, and every sum's order,
+// is that of the unskipped sweep, bit for bit. The unskipped sweep stays
+// reachable (skip = 0), and each launch counts the pairs it computed (an
+// integer count per block, added up by its caller).
+//   The slack: no pair that the gate keeps may lie in a skipped tile pair.
+// Such a pair has a true squared distance D >= the true gap2. The per-pair
+// kernels test z = (|x|^2 + |y|^2) - 2 x . y < d2t (geo_z); each of |x|^2,
+// |y|^2 and the 3-term dot rounds with at most 3 ulps of relative error
+// (unit roundoff u = 2^-24), and the two additions add one each, so
+// |z - D| <= 9 u (|x|^2 + |y|^2) <= 9 u S, S = s_row + s_col. The moment
+// kernel's explicit differences give a d2 >= D (1 - 5 u). So a kept pair
+// has D < d2t + 9 u S + 6 u d2t. The box edges are the points' own floats,
+// and the computed gap2 exceeds the true one by at most 5 u of itself; thr
+// rounds down by at most 2 u. Hence every kept pair's tile pair has
+// computed gap2 < d2t + 64 u (d2t + S) <= thr: the slack 2^-18 = 64 u is
+// six times what the argument needs. A point whose squared norm overflows
+// never passes the per-pair gate, so those boxes leave it out; the moment
+// kernel's boxes take s = FLT_MAX for it, so its tile pairs are computed.
+// The box test takes fmaxf, which ignores a NaN, so a non-finite edge
+// computes the pair. kernels.tile_flags_plain repeats the test in torch.
+//
 // Gate and kernel follow the Pallas `_pair_tile` (pallas_kernels.py:106):
 // distances by the dot identity with FMA-chain dots, one fused clamped
 // exponential; ops/pairwise.cvo_kernel repeats them operation by operation.
@@ -68,8 +105,59 @@ constexpr int ROWS = RB * THREADS;   // rows per work item
 constexpr int CT = 32;               // columns per tile: one bitmask word
 constexpr int N_FLOW = 6;            // flow partials per work item
 constexpr int N_STEP = 4;            // step partials per work item (B..E)
+// the slack of the tile-skip test: 2^-18 of (d2t + s_row + s_col)
+constexpr float SKIP_SLACK = 3.814697265625e-06f;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// the box of a set of points: lo, hi per coordinate and the largest squared
+// norm s; empty: lo +inf, hi -inf, s 0 (its gap to any box is +inf)
+struct Box {
+  float lo[3], hi[3], s;
+};
+static_assert(sizeof(Box) == 7 * sizeof(float), "a Box is 7 floats");
+
+__device__ __forceinline__ Box empty_box() {
+  Box b;
+  for (int c = 0; c < 3; ++c) {
+    b.lo[c] = inf_f();
+    b.hi[c] = -inf_f();
+  }
+  b.s = 0.f;
+  return b;
+}
+
+__device__ __forceinline__ void box_add(Box& b, float x, float y, float z,
+                                        float s) {
+  const float q[3] = {x, y, z};
+  for (int c = 0; c < 3; ++c) {
+    b.lo[c] = fminf(b.lo[c], q[c]);
+    b.hi[c] = fmaxf(b.hi[c], q[c]);
+  }
+  b.s = fmaxf(b.s, s);
+}
+
+// an int whose signed order is the order of the floats (every non-NaN
+// float, the infinities included), and back
+__device__ __forceinline__ int ordered(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float from_ordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// the box of the warp's boxes, in every lane: one warp-wide integer min or
+// max (redux.sync) per bound, on the order-preserving ints (min and max
+// are exact in any order)
+__device__ __forceinline__ void warp_box(Box& b) {
+  for (int c = 0; c < 3; ++c) {
+    b.lo[c] = from_ordered(__reduce_min_sync(0xffffffffu, ordered(b.lo[c])));
+    b.hi[c] = from_ordered(__reduce_max_sync(0xffffffffu, ordered(b.hi[c])));
+  }
+  b.s = from_ordered(__reduce_max_sync(0xffffffffu, ordered(b.s)));
+}
 
 // the work split of a launch
 struct Split {
@@ -184,7 +272,44 @@ struct __align__(16) PackedTile {
 struct Stage {
   RawTile raw[2];
   PackedTile pk;
+  Box warps[NWARPS];   // the warps' boxes of the item's rows
+  int live;            // thread 0's decision for the packed tile
 };
+
+// each warp's box of its threads' boxes `b` of the item's rows into
+// s.warps (the sweep's first barrier publishes them). Every thread calls
+// it.
+__device__ __forceinline__ void store_rows_box(Box b, Stage& s) {
+  warp_box(b);
+  if ((threadIdx.x & 31) == 0) s.warps[threadIdx.x >> 5] = b;
+}
+
+// the item's row box: the warps' boxes combined
+__device__ __forceinline__ Box rows_of(const Stage& s) {
+  Box o = s.warps[0];
+  for (int w = 1; w < NWARPS; ++w) {
+    const Box& q = s.warps[w];
+    for (int c = 0; c < 3; ++c) {
+      o.lo[c] = fminf(o.lo[c], q.lo[c]);
+      o.hi[c] = fmaxf(o.hi[c], q.hi[c]);
+    }
+    o.s = fmaxf(o.s, q.s);
+  }
+  return o;
+}
+
+// whether the tile pair of a row box and a column box is computed: the
+// squared gap of the boxes below thr (module note; kernels.tile_flags_plain
+// repeats these float operations in this order); d2t the gate's cut
+__device__ __forceinline__ bool box_live(const Box& r, const Box& c,
+                                         float d2t) {
+  float gap2 = 0.f;
+  for (int q = 0; q < 3; ++q) {
+    const float g = fmaxf(fmaxf(c.lo[q] - r.hi[q], r.lo[q] - c.hi[q]), 0.f);
+    gap2 = gap2 + g * g;
+  }
+  return gap2 < d2t + SKIP_SLACK * ((d2t + r.s) + c.s);
+}
 
 // the block's reduction scratch
 struct Red {
@@ -261,12 +386,19 @@ __device__ __forceinline__ void pack_tile(const RawTile& raw, PackedTile& pk,
 
 // The sweep of one item's column tiles: stage them (double-buffered
 // cp.async), pack each with pack(raw tile, packed tile) and call
-// visit(t, packed tile) once per tile. Every thread of the block calls it.
+// visit(t, packed tile, live) once per tile. With skip, warp 0 takes the
+// box of the packed columns whose squared norm (pk.p[k].w) is finite and
+// thread 0 sets live = box_live(the item's row box, that box, d2t) (the
+// warps stored their row boxes before the sweep, store_rows_box); without,
+// every tile is live. A visit computes nothing for a tile that is not live.
+// Returns the live tiles. Every thread of the block calls it.
 template <class Pack, class Visit>
-__device__ __forceinline__ void sweep_packed(const Clouds& cl,
-                                             const Split& sp, const Item& it,
-                                             Stage& s, Pack&& pack,
-                                             Visit&& visit) {
+__device__ __forceinline__ int sweep_packed(const Clouds& cl,
+                                            const Split& sp, const Item& it,
+                                            Stage& s, bool skip, float d2t,
+                                            Pack&& pack, Visit&& visit) {
+  int live_tiles = 0;
+  Box rows;   // thread 0's: the item's row box
   issue_tile(cl, sp.M, it.t0, s.raw[0]);
   cp_async_commit();
   for (int t = it.t0; t < it.t1; ++t) {
@@ -276,22 +408,49 @@ __device__ __forceinline__ void sweep_packed(const Clouds& cl,
     if (t + 1 < it.t1) issue_tile(cl, sp.M, t + 1, s.raw[b ^ 1]);
     cp_async_commit();
     pack(s.raw[b], s.pk);
+    if (skip && threadIdx.x < CT) {   // warp 0: the lanes that packed
+      const float4 p = s.pk.p[threadIdx.x];
+      Box cols = empty_box();
+      if (p.w < inf_f()) box_add(cols, p.x, p.y, p.z, p.w);
+      warp_box(cols);
+      if (threadIdx.x == 0) {
+        if (t == it.t0) rows = rows_of(s);
+        s.live = box_live(rows, cols, d2t);
+      }
+    }
     __syncthreads();
-    visit(t, s.pk);
+    const bool live = !skip || s.live;
+    live_tiles += live;
+    visit(t, s.pk, live);
   }
   __syncthreads();     // the stage is free for the next item
+  return live_tiles;
 }
 
 // the sweep with the per-pair passes' packing (pack_tile)
 template <bool MOVE, class Visit>
-__device__ __forceinline__ void sweep(const Clouds& cl, const Split& sp,
-                                      const Item& it, const Pose& pose,
-                                      Stage& s, Visit&& visit) {
-  sweep_packed(cl, sp, it, s,
-               [&](const RawTile& raw, PackedTile& pk) {
-                 pack_tile<MOVE>(raw, pk, pose);
-               },
-               visit);
+__device__ __forceinline__ int sweep(const Clouds& cl, const Split& sp,
+                                     const Item& it, const Pose& pose,
+                                     Stage& s, bool skip, float d2t,
+                                     Visit&& visit) {
+  return sweep_packed(cl, sp, it, s, skip, d2t,
+                      [&](const RawTile& raw, PackedTile& pk) {
+                        pack_tile<MOVE>(raw, pk, pose);
+                      },
+                      visit);
+}
+
+// the row box of a per-pair item (before its sweep): the rows whose squared
+// norm is finite (a masked row has +inf and passes no gate). Every thread
+// calls it.
+__device__ __forceinline__ void rows_box(const Rows& R, Stage& s) {
+  Box b = empty_box();
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+    if (R.xx[r] < inf_f())
+      box_add(b, -0.5f * R.m2x[r][0], -0.5f * R.m2x[r][1],
+              -0.5f * R.m2x[r][2], R.xx[r]);
+  store_rows_box(b, s);
 }
 
 // the geometric distance of (row r, column p) before its clamp at 0:
@@ -398,33 +557,38 @@ __device__ __forceinline__ void step_terms(float* acc, float a,
                  + 0.5f * gamma * gamma + b2 * b2 / 24.f);
 }
 
-// Pass 1 over one work item: the keep bitmask of its rows and column tiles,
-// its 12 flow partials and its keep count (quantity-major: fpart[q * items
-// + item]). Every thread of the block calls it.
+// Pass 1 over one work item: the keep bitmask of its rows and column tiles
+// (zero words for a tile pair that is not live), its 6 flow partials
+// (quantity-major: fpart[q * items + item]) and its keep count npart[item].
+// Returns the tile pairs it computed. Every thread of the block calls it.
 template <bool MOVE>
-__device__ void flow_item(const Clouds& cl, const Split& sp, int item,
+__device__ int flow_item(const Clouds& cl, const Split& sp, int item,
                           const Pose& pose, float ell, const Consts& c,
-                          Stage& s, RowColours& F, Red& red,
+                          bool skip, Stage& s, RowColours& F, Red& red,
                           unsigned* __restrict__ bits,
                           float* __restrict__ fpart,
                           int* __restrict__ npart) {
   const Item it = item_of(sp, item);
   Rows R;
   load_rows(cl, sp, it.rt, R, F);
-  const float cut = geo_cut(-2.f * ell * ell * c.log_ratio);
+  if (skip) rows_box(R, s);
+  const float d2t = -2.f * ell * ell * c.log_ratio;
+  const float cut = geo_cut(d2t);
   const float den = 2.f * ell * ell;
   float d[RB][3] = {}, as[RB] = {};   // sum_j a y_j, sum_j a per row
   int n = 0;
-  sweep<MOVE>(cl, sp, it, pose, s, [&](int t, const PackedTile& pk) {
+  const int tiles = sweep<MOVE>(cl, sp, it, pose, s, skip, d2t,
+                                [&](int t, const PackedTile& pk, bool live) {
     unsigned word[RB] = {};
-    kept_pairs(R, F, pk, cut, den, c, [&](int r, int k, float a, float4 p) {
+    const auto kept = [&](int r, int k, float a, float4 p) {
       word[r] |= 1u << k;
       ++n;
       d[r][0] += a * p.x;
       d[r][1] += a * p.y;
       d[r][2] += a * p.z;
       as[r] += a;
-    });
+    };
+    if (live) kept_pairs(R, F, pk, cut, den, c, kept);
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
       const int i = row_index(it.rt, r);
@@ -450,6 +614,7 @@ __device__ void flow_item(const Clouds& cl, const Split& sp, int item,
       __stcg(fpart + q * sp.items + item, red.out[q]);
     __stcg(npart + item, red.iout);
   }
+  return tiles;
 }
 
 // Pass 2 over one work item from pass 1's keep bitmask, for the flow
@@ -499,19 +664,26 @@ __device__ void step_item(const Clouds& cl, const Split& sp, int item,
 
 // Pass 2 with no bitmask (step_coeffs alone): the gate sweep of pass 1
 // with the quartic terms of each kept pair, summed in step_item's order.
-__device__ void step_sweep_item(const Clouds& cl, const Split& sp, int item,
-                                float ell, const float* w, const float* v,
-                                const Consts& c, Stage& s, RowColours& F,
-                                Red& red, float* __restrict__ spart) {
+// Returns the tile pairs it computed.
+__device__ int step_sweep_item(const Clouds& cl, const Split& sp, int item,
+                               float ell, const float* w, const float* v,
+                               const Consts& c, bool skip, Stage& s,
+                               RowColours& F, Red& red,
+                               float* __restrict__ spart) {
   const Item it = item_of(sp, item);
   Rows R;
   load_rows(cl, sp, it.rt, R, F);
-  const float cut = geo_cut(-2.f * ell * ell * c.log_ratio);
+  if (skip) rows_box(R, s);
+  const float d2t = -2.f * ell * ell * c.log_ratio;
+  const float cut = geo_cut(d2t);
   const float den = 2.f * ell * ell;
   const float tc = 1.f / (2.f * ell * ell);
   float ar[RB][N_STEP] = {};
   const Pose none{};
-  sweep<false>(cl, sp, it, none, s, [&](int, const PackedTile& pk) {
+  const int tiles = sweep<false>(
+      cl, sp, it, none, s, skip, d2t,
+      [&](int, const PackedTile& pk, bool live) {
+    if (!live) return;
     kept_pairs(R, F, pk, cut, den, c, [&](int r, int, float a, float4 p) {
       const float q[3] = {p.x, p.y, p.z};
       float x[3];
@@ -527,6 +699,7 @@ __device__ void step_sweep_item(const Clouds& cl, const Split& sp, int item,
   if (threadIdx.x == 0)
     for (int q = 0; q < N_STEP; ++q)
       __stcg(spart + q * sp.items + item, red.out[q]);
+  return tiles;
 }
 
 // Whether this block is the last of n to finish (the thread-fence

@@ -38,7 +38,10 @@
 //     lane + 32, reading the U row from global memory (coalesced, L2-
 //     resident). Each sum of Mom is a row's kept pairs in ascending i,
 //     whatever the split; block 0 sums the items' counts into nnz.
-// Two launches per call, no partials of Mom.
+// Two launches per call, no partials of Mom. Pass 1 skips the tile pairs
+// whose boxes lie beyond the gate, with flow_step.cuh's slack (the rows'
+// box taken as they load, each fixed-point tile's as it is packed), so
+// skipping adds no launch and changes no bit.
 //
 // The gate uses explicit differences, as the Pallas kernel and
 // kernels.moment_pass_plain: (x - y)^2 summed coordinate by coordinate,
@@ -77,12 +80,21 @@ struct MomentRowColours {
   float f[5][ROWS];
 };
 
+// the squared norm of an unmasked point as a box takes it: FLT_MAX where
+// it overflows, so the tile pair is computed (flow_step.cuh's slack note)
+__device__ __forceinline__ float box_sq(const float* q) {
+  return fminf(sq3(q), 3.402823466e38f);
+}
+
 // cl.x / fx / mx: the moving cloud (rows); cl.y / fy / my: the fixed cloud
-// (the staged columns)
+// (the staged columns). With skip, each warp's box of its rows into s
+// (store_rows_box).
 __device__ __forceinline__ void load_moment_rows(const Clouds& cl,
                                                  const Split& sp, int rt,
-                                                 MomentRows& R,
-                                                 MomentRowColours& F) {
+                                                 bool skip, MomentRows& R,
+                                                 MomentRowColours& F,
+                                                 Stage& s) {
+  Box b = empty_box();
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
     const int j = row_index(rt, r);
@@ -90,10 +102,14 @@ __device__ __forceinline__ void load_moment_rows(const Clouds& cl,
     const bool on = j < sp.N && cl.mx[j] != 0;
     for (int c = 0; c < 3; ++c) R.y[r][c] = on ? cl.x[j * 3 + c] : inf_f();
     for (int c = 0; c < 5; ++c) F.f[c][lr] = on ? cl.fx[j * 5 + c] : 0.f;
+    if (skip && on)
+      box_add(b, R.y[r][0], R.y[r][1], R.y[r][2], box_sq(R.y[r]));
   }
+  if (skip) store_rows_box(b, s);
 }
 
-// pack a raw column tile: positions (+inf when masked), colours as they are
+// pack a raw column tile: positions (+inf when masked; w the squared norm
+// the sweep's column box takes, +inf when masked), colours as they are
 __device__ __forceinline__ void pack_moment_tile(const RawTile& raw,
                                                  PackedTile& pk) {
   const int k = threadIdx.x;
@@ -102,7 +118,7 @@ __device__ __forceinline__ void pack_moment_tile(const RawTile& raw,
   float q[3], f[5];
   for (int c = 0; c < 3; ++c) q[c] = on ? raw.p[3 * k + c] : inf_f();
   for (int c = 0; c < 5; ++c) f[c] = raw.f[5 * k + c];
-  pk.p[k] = make_float4(q[0], q[1], q[2], 0.f);
+  pk.p[k] = make_float4(q[0], q[1], q[2], on ? box_sq(q) : inf_f());
   pk.fa[k] = make_float4(f[0], f[1], f[2], f[3]);
   pk.fb[k] = make_float2(f[4], 0.f);
 }
@@ -136,17 +152,19 @@ __device__ __forceinline__ float moment_a(float d2, float d2c, float inv2l2,
 }
 
 // Pass 1 over one work item (blockIdx.x): the keep bitmask of its rows and
-// column tiles and its keep count npart[item].
+// column tiles (zero words for a tile pair that is not live: flow_step.cuh's
+// tile skipping, with skip), its keep count npart[item] and its live tiles
+// npart[items + item].
 __global__ void __launch_bounds__(THREADS)
 moment_keep_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr,
-                 MomentConsts c, unsigned* __restrict__ bits,
+                 MomentConsts c, int skip, unsigned* __restrict__ bits,
                  int* __restrict__ npart) {
   __shared__ Stage s;
   __shared__ MomentRowColours F;
   __shared__ Red red;
   const Item it = item_of(sp, blockIdx.x);
   MomentRows R;
-  load_moment_rows(cl, sp, it.rt, R, F);
+  load_moment_rows(cl, sp, it.rt, skip != 0, R, F, s);
   const float ell = *ell_ptr;
   const float d2t = -2.f * ell * ell * c.log_ratio;
   const float inv2l2 = 1.f / (2.f * ell * ell);
@@ -154,10 +172,12 @@ moment_keep_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr,
   const auto pack = [](const RawTile& raw, PackedTile& pk) {
     pack_moment_tile(raw, pk);
   };
-  sweep_packed(cl, sp, it, s, pack, [&](int t, const PackedTile& pk) {
+  const int tiles = sweep_packed(
+      cl, sp, it, s, skip != 0, d2t, pack,
+      [&](int t, const PackedTile& pk, bool live) {
     unsigned word[RB] = {};
 #pragma unroll 2
-    for (int k = 0; k < CT; ++k) {
+    for (int k = 0; live && k < CT; ++k) {
       const float4 p = pk.p[k];
       float d2[RB];
       bool any = false;
@@ -190,12 +210,15 @@ moment_keep_pass(Clouds cl, Split sp, const float* __restrict__ ell_ptr,
   });
   int cnt[1] = {n};
   block_sum_n<NWARPS>(cnt, red.i, &red.iout);
-  if (threadIdx.x == 0) __stcg(npart + blockIdx.x, red.iout);
+  if (threadIdx.x == 0) {
+    __stcg(npart + blockIdx.x, red.iout);
+    __stcg(npart + sp.items + blockIdx.x, tiles);
+  }
 }
 
 // Pass 2: warp w of block b owns moving point j = b * SUM_WARPS + w and
 // writes Mom[j, 0:35] from pass 1's bitmask; block 0 first sums the
-// `items` keep counts into *nnz.
+// `items` keep counts into nnz[0] and their live tiles into nnz[1].
 __global__ void __launch_bounds__(SUM_WARPS * 32)
 moment_sum_pass(const float* __restrict__ x, const float* __restrict__ fx,
                 const float* __restrict__ U, const float* __restrict__ y,
@@ -204,19 +227,23 @@ moment_sum_pass(const float* __restrict__ x, const float* __restrict__ fx,
                 MomentConsts c, const unsigned* __restrict__ bits,
                 const int* __restrict__ npart, int items,
                 float* __restrict__ mom, int* __restrict__ nnz) {
-  __shared__ int warp_cnt[SUM_WARPS];
+  __shared__ int warp_cnt[2][SUM_WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (blockIdx.x == 0) {   // integer counts: any order is exact
-    int s = 0;
-    for (int b = threadIdx.x; b < items; b += SUM_WARPS * 32)
-      s += __ldg(npart + b);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) warp_cnt[warp] = s;
+    int s[2] = {0, 0};
+    for (int b = threadIdx.x; b < items; b += SUM_WARPS * 32) {
+      s[0] += __ldg(npart + b);
+      s[1] += __ldg(npart + items + b);
+    }
+    for (int q = 0; q < 2; ++q) {
+      s[q] = __reduce_add_sync(0xffffffffu, s[q]);
+      if (lane == 0) warp_cnt[q][warp] = s[q];
+    }
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (threadIdx.x < 2) {
       int t = 0;
-      for (int w = 0; w < SUM_WARPS; ++w) t += warp_cnt[w];
-      *nnz = t;
+      for (int w = 0; w < SUM_WARPS; ++w) t += warp_cnt[threadIdx.x][w];
+      nnz[threadIdx.x] = t;
     }
   }
   const int j = blockIdx.x * SUM_WARPS + warp;
@@ -287,15 +314,19 @@ extern "C" int moment_geometry(int* out) {
 // Fixed cloud x/fx/mx (N, the staged columns: each 16-byte aligned), U
 // (N, 35); moving cloud y/fy/my (M, the rows). Pass 1's split: rows in
 // tiles of ROWS, `chunks` chunks of per_chunk column tiles,
-// items = ceil(M / ROWS) * chunks. Scratch: bits ceil(N/32) * M words (on
-// return, pass 1's keep bitmask), npart `items` ints. Out: mom (M, 35)
-// floats, nnz 1 int.
+// items = ceil(M / ROWS) * chunks. skip: 1 skips the tile pairs whose boxes
+// lie beyond the gate (flow_step.cuh), 0 computes every pair; the outputs
+// are the same bit for bit. Scratch: bits ceil(N/32) * M words (on return,
+// pass 1's keep bitmask), npart 2 * items ints. Out: mom (M, 35) floats,
+// nnz 2 ints: the keep count and the tile pairs pass 1 computed (of
+// ceil(M / ROWS) * ceil(N/32)).
 extern "C" int moment_flow_step_launch(
     const float* x, const float* fx, const unsigned char* mx, const float* U,
     const float* y, const float* fy, const unsigned char* my,
     const float* ell, int N, int M, int chunks, int per_chunk,
     float log_ratio, float d2ct, float inv2cl2, float s2cs2, float sp_thres,
-    unsigned* bits, int* npart, float* mom, int* nnz, cudaStream_t stream) {
+    int skip, unsigned* bits, int* npart, float* mom, int* nnz,
+    cudaStream_t stream) {
   Split sp;
   if (!make_split(M, N, chunks, per_chunk, sp))
     return (int)cudaErrorInvalidValue;
@@ -303,8 +334,8 @@ extern "C" int moment_flow_step_launch(
     return (int)cudaErrorMisalignedAddress;
   const MomentConsts c{log_ratio, d2ct, inv2cl2, s2cs2, sp_thres};
   const Clouds cl{y, fy, my, x, fx, mx};   // rows: moving; columns: fixed
-  moment_keep_pass<<<sp.items, THREADS, 0, stream>>>(cl, sp, ell, c, bits,
-                                                     npart);
+  moment_keep_pass<<<sp.items, THREADS, 0, stream>>>(cl, sp, ell, c, skip,
+                                                     bits, npart);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   moment_sum_pass<<<(M + SUM_WARPS - 1) / SUM_WARPS, SUM_WARPS * 32, 0,

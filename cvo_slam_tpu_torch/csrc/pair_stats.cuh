@@ -241,7 +241,9 @@ __device__ void stats_item(const Clouds& cl, const Split& sp, int item,
         ms->wu[b * ROW_STRIDE + r * THREADS + tid] = 0.f;
   }
   const Pose none{};
-  sweep<false>(cl, sp, it, none, s, [&](int, const PackedTile& pk) {
+  // every tile pair (the sweep's tile skipping is not taken here)
+  sweep<false>(cl, sp, it, none, s, false, 0.f,
+               [&](int, const PackedTile& pk, bool) {
 #pragma unroll 2
     for (int k = 0; k < CT; ++k) {
       const float4 p = pk.p[k];

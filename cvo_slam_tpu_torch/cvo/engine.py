@@ -653,6 +653,29 @@ class Cvo:
         (reference quirk, cvo.cpp:383)."""
         return self.params.ell_init if self.params.ell_reset else self.ell
 
+    def _align(self):
+        """One align of moving against fixed from (R, T, start_ell()) under
+        the instance's backend, its outputs brought to the host in one
+        transfer and written back."""
+        res = align(self.fixed, self.moving, self.R, self.T,
+                    np.float32(self.start_ell()), self.params, self.backend)
+        # f64 holds every f32 value and count exactly
+        flat = torch.cat([t.reshape(-1).double() for t in res]).cpu().numpy()
+        parts = np.split(flat, np.cumsum([t.numel() for t in res])[:-1])
+        return self._apply_align(*(a.reshape(t.shape)
+                                   for a, t in zip(parts, res)))
+
+    def match_odometry(self, cloud: PointCloud, pixels: np.ndarray):
+        """cvo.cpp:461-473: set the new cloud as moving, align it, return
+        the transform."""
+        if not self.init:
+            raise RuntimeError("cvo not initialized: set_pcd the fixed cloud "
+                               "first")
+        self.set_pcd(cloud, pixels)
+        return self._align()
+
+    match_keyframe = match_odometry   # cvo.cpp:563-576 (same body)
+
     def _apply_align(self, R, T, transform, ell, iters, nnz):
         """Write back one alignment's host outputs."""
         self.R = np.asarray(R, np.float32)

@@ -39,6 +39,13 @@ grid, which the kernel's library reports (`*_geometry`), and `plan_sets`
 sizes the suite's four pair sets together, as one grid.
 The pass 1 of the align kernels and of the moment kernel records the kept
 pairs in a bitmask (`pack_keep_bits` is its layout) that pass 2 walks.
+Their gate sweeps skip the (row tile, column tile) pairs whose boxes lie
+beyond the gate radius, as the Pallas kernels skip: every output is that of
+the sweep that computes every pair, bit for bit, and each launch counts the
+tile pairs it computed (`launch_info`'s `tiles`, a device tensor, against
+`tile_pairs` a sweep). `tile_flags_plain` is the test in torch; the
+wrappers' `tile_skip=False` computes every pair (for the checks that hold
+the two sweeps equal).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel (building it on first use) or raises. Each
@@ -298,6 +305,55 @@ def keep_bits_plain(x, y, fx, fy, mx, my, ell, p: CvoParams):
     return pack_keep_bits(keep)
 
 
+# the slack of the kernels' tile-skip test (csrc/flow_step.cuh's box_live)
+SKIP_SLACK = 2.0 ** -18
+
+
+def _tile_boxes(pos, mask, tile):
+    """Per tile of `tile` consecutive points: (lo (T, 3), hi (T, 3), s (T,))
+    over the masked-in points, s their largest squared norm (summed
+    coordinate by coordinate, as the kernels' sq3); an empty tile gets lo
+    +inf, hi -inf, s 0."""
+    n = pos.shape[0]
+    t = -(-n // tile)
+    pad = t * tile - n
+    m = torch.nn.functional.pad(mask, (0, pad)).reshape(t, tile, 1)
+    p = torch.nn.functional.pad(pos, (0, 0, 0, pad)).reshape(t, tile, 3)
+    inf = torch.tensor(float("inf"), dtype=pos.dtype, device=pos.device)
+    sq = (p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) \
+        + p[..., 2] * p[..., 2]
+    return (torch.where(m, p, inf).amin(1), torch.where(m, p, -inf).amax(1),
+            torch.where(m[..., 0], sq, torch.zeros_like(sq)).amax(1))
+
+
+def tile_flags_plain(x, mx, y, my, ell, rows: int, cols: int, p: CvoParams,
+                     margin: float = 0.0, slack: bool = False):
+    """(ceil(N/rows), ceil(M/cols)) bool: which (row tile, column tile)
+    pairs of rows x/mx against columns y/my a skipping gate sweep computes,
+    from the boxes of their masked-in points. slack=False: the JAX
+    package's flags (pallas_kernels._skip_flags, and with a margin
+    pallas_align._skip_flags_margin): the squared gap below d2t, or below
+    (sqrt(d2t) + margin)^2. slack=True: the CUDA kernels' own test
+    (csrc/flow_step.cuh's box_live), the squared gap below d2t + 2^-18
+    ((d2t + s_row) + s_col), which keeps every tile pair holding a pair the
+    gate keeps, whichever way the kernel rounds its distances."""
+    ell = _as_ell(ell, x.device)
+    d2t = pairwise.d2_threshold(ell, p)
+    xlo, xhi, xs = _tile_boxes(x, mx, rows)
+    ylo, yhi, ys = _tile_boxes(y, my, cols)
+    gap = torch.fmax(torch.fmax(ylo[None] - xhi[:, None],
+                                xlo[:, None] - yhi[None]),
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    g2 = gap * gap
+    gap2 = (g2[..., 0] + g2[..., 1]) + g2[..., 2]
+    if slack:
+        return gap2 < d2t + SKIP_SLACK * ((d2t + xs[:, None]) + ys[None])
+    if margin:
+        radius = torch.sqrt(d2t) + margin
+        return gap2 < radius * radius
+    return gap2 < d2t
+
+
 _geometry_cache: Dict[tuple, Tuple[int, int, int, int]] = {}
 
 
@@ -438,11 +494,13 @@ def _inv2cl2(p: CvoParams) -> float:
 
 
 def moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, p: CvoParams,
-                     keep_bits=None, launch_info=None):
+                     keep_bits=None, launch_info=None, tile_skip=True):
     """The CUDA moment kernel: same function as moment_pass_plain, in two
     launches. keep_bits (int32 (ceil(N/32), M)) receives pass 1's keep
-    bitmask; a launch_info dict receives pass 1's grid, blocks per SM, SMs
-    and the split."""
+    bitmask; a launch_info dict receives pass 1's grid, blocks per SM, SMs,
+    the split, the tile pairs pass 1 computed (`tiles`, a device tensor)
+    and its tile pairs (`tile_pairs`). tile_skip=False computes every tile
+    pair (the same outputs bit for bit)."""
     dev = x.device
     n, m = x.shape[0], y.shape[0]
     _check_cloud("fixed", x, fx, mx, n, dev)
@@ -458,23 +516,27 @@ def moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, p: CvoParams,
     plan, per_sm, sms = _plan_for(MOMENT, "moment_geometry", m, n, dev)
     fn = _fn(MOMENT, "moment_flow_step_launch",
              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-             + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 5)
-    npart = torch.empty((plan.items,), dtype=torch.int32, device=dev)
+             + [ctypes.c_float] * 5 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 5)
+    npart = torch.empty((2, plan.items), dtype=torch.int32, device=dev)
     mom = torch.empty((m, pairwise.N_MOMENTS), dtype=torch.float32,
                       device=dev)
-    nnz = torch.empty((), dtype=torch.int32, device=dev)
+    counts = torch.empty((2,), dtype=torch.int32, device=dev)   # nnz, tiles
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(U), _ptr(y), _ptr(fy),
              _ptr(my), _ptr(ell), n, m, plan.chunks, plan.tiles_per_chunk,
              pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
-             _inv2cl2(p), _s2cs2(p), p.sp_thres, _ptr(keep_bits),
-             _ptr(npart), _ptr(mom), _ptr(nnz), _stream(dev))
+             _inv2cl2(p), _s2cs2(p), p.sp_thres, int(tile_skip),
+             _ptr(keep_bits), _ptr(npart), _ptr(mom), _ptr(counts),
+             _stream(dev))
     _raise_on(err, MOMENT.name)
     MOMENT.count_launch()
     if launch_info is not None:
         launch_info.update(grid=plan.items, blocks_per_sm=per_sm, sms=sms,
                            chunks=plan.chunks,
-                           tiles_per_chunk=plan.tiles_per_chunk)
-    return mom, nnz
+                           tiles_per_chunk=plan.tiles_per_chunk,
+                           tiles=counts[1],
+                           tile_pairs=plan.row_tiles * plan.col_tiles)
+    return mom, counts[0]
 
 
 def moment_pass(x, y, fx, fy, mx, my, U, ell, p: CvoParams):
@@ -775,11 +837,15 @@ def flow_and_step_plain(x, y, fx, fy, mx, my, ell, p: CvoParams):
 
 
 def _flow_step_cuda(mode, x, y, fx, fy, mx, my, ell, p: CvoParams, wv=None,
-                    keep_bits=None, launch_info=None):
+                    keep_bits=None, launch_info=None, tile_skip=True):
     """One call of csrc/flow_step.cu in `mode`; returns (out_f (10,):
-    omega, v, B, C, D, E; out_n (3,): nnz and the passes' tickets), each
-    holding its mode's outputs. keep_bits: an int32 (ceil(M/32), N) tensor
-    that receives pass 1's keep bitmask (modes 0, 1)."""
+    omega, v, B, C, D, E; out_n (4,): nnz, the passes' tickets and the tile
+    pairs the gate sweep computed), each holding its mode's outputs.
+    keep_bits: an int32 (ceil(M/32), N) tensor that receives pass 1's keep
+    bitmask (modes 0, 1). A launch_info dict receives the grid, blocks per
+    SM, SMs, the split, the computed tile pairs (`tiles`, a device tensor)
+    and the sweep's tile pairs (`tile_pairs`). tile_skip=False computes
+    every tile pair (the same outputs bit for bit)."""
     dev = x.device
     n, m = x.shape[0], y.shape[0]
     _check_cloud("fixed", x, fx, mx, n, dev)
@@ -795,15 +861,17 @@ def _flow_step_cuda(mode, x, y, fx, fy, mx, my, ell, p: CvoParams, wv=None,
                                   dev)
     fn = _fn(FLOW_AND_STEP, "flow_and_step_launch",
              [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-             + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 8)
+             + [ctypes.c_float] * 7 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 8)
     bits, fpart, npart, spart = _scratch(plan, dev, keep_bits,
                                          mode != _STEP_ONLY)
     out_f = torch.zeros((10,), dtype=torch.float32, device=dev)
-    out_n = torch.zeros((3,), dtype=torch.int32, device=dev)
+    out_n = torch.zeros((4,), dtype=torch.int32, device=dev)
     err = fn(mode, _ptr(x), _ptr(fx), _ptr(mx), _ptr(y), _ptr(fy), _ptr(my),
              _ptr(ell), n, m, plan.chunks, plan.tiles_per_chunk,
              pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
              2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d,
+             int(tile_skip),
              ctypes.c_void_p(None if wv is None else wv.data_ptr()),
              ctypes.c_void_p(None if bits is None else bits.data_ptr()),
              _ptr(fpart), _ptr(npart), _ptr(spart), _ptr(out_f),
@@ -812,35 +880,44 @@ def _flow_step_cuda(mode, x, y, fx, fy, mx, my, ell, p: CvoParams, wv=None,
     if launch_info is not None:
         launch_info.update(grid=plan.items, blocks_per_sm=per_sm, sms=sms,
                            chunks=plan.chunks,
-                           tiles_per_chunk=plan.tiles_per_chunk)
+                           tiles_per_chunk=plan.tiles_per_chunk,
+                           tiles=out_n[3],
+                           tile_pairs=plan.row_tiles * plan.col_tiles)
     return out_f, out_n
 
 
-def flow_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams):
-    """The CUDA flow pass: same function and tuple as flow_plain."""
-    out_f, out_n = _flow_step_cuda(_FLOW_ONLY, x, y, fx, fy, mx, my, ell, p)
+def flow_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams, launch_info=None,
+              tile_skip=True):
+    """The CUDA flow pass: same function and tuple as flow_plain
+    (launch_info and tile_skip: _flow_step_cuda's)."""
+    out_f, out_n = _flow_step_cuda(_FLOW_ONLY, x, y, fx, fy, mx, my, ell, p,
+                                   launch_info=launch_info,
+                                   tile_skip=tile_skip)
     FLOW.count_launch()
     return out_f[0:3], out_f[3:6], out_n[0]
 
 
-def step_coeffs_cuda(x, y, fx, fy, mx, my, omega, v, ell, p: CvoParams):
-    """The CUDA step pass: same function and tuple as step_coeffs_plain."""
+def step_coeffs_cuda(x, y, fx, fy, mx, my, omega, v, ell, p: CvoParams,
+                     launch_info=None, tile_skip=True):
+    """The CUDA step pass: same function and tuple as step_coeffs_plain
+    (launch_info and tile_skip: _flow_step_cuda's)."""
     wv = torch.cat([omega.reshape(3), v.reshape(3)]).to(
         device=x.device, dtype=torch.float32).contiguous()
-    out_f, _ = _flow_step_cuda(_STEP_ONLY, x, y, fx, fy, mx, my, ell, p, wv)
+    out_f, _ = _flow_step_cuda(_STEP_ONLY, x, y, fx, fy, mx, my, ell, p, wv,
+                               launch_info=launch_info, tile_skip=tile_skip)
     STEP.count_launch()
     return out_f[6], out_f[7], out_f[8], out_f[9]
 
 
 def flow_and_step_cuda(x, y, fx, fy, mx, my, ell, p: CvoParams,
-                       keep_bits=None, launch_info=None):
+                       keep_bits=None, launch_info=None, tile_skip=True):
     """Both passes in one call (two launches): same function and tuple as
     flow_and_step_plain. keep_bits (int32 (ceil(M/32), N)) receives the
-    keep bitmask of pass 1; a launch_info dict receives the grid, blocks
-    per SM, SMs and the split."""
+    keep bitmask of pass 1; launch_info and tile_skip: _flow_step_cuda's."""
     out_f, out_n = _flow_step_cuda(_BOTH, x, y, fx, fy, mx, my, ell, p,
                                    keep_bits=keep_bits,
-                                   launch_info=launch_info)
+                                   launch_info=launch_info,
+                                   tile_skip=tile_skip)
     FLOW_AND_STEP.count_launch()
     return (out_f[0:3], out_f[3:6], out_n[0], out_f[6], out_f[7], out_f[8],
             out_f[9])
@@ -890,12 +967,14 @@ def align_fused_plain(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams):
 
 
 def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
-                  launch_info=None):
+                  launch_info=None, tile_skip=True):
     """One cooperative launch of csrc/align_fused.cu for `lanes` lanes:
     y0/fy/my stacks of `lanes` moving clouds, x/fx/mx a stack of fixed
     clouds or one fixed cloud of every lane, R0 (lanes, 3, 3), T0
     (lanes, 3), ell0 (lanes,). Returns (out_f (lanes, 13): R, T, ell;
-    out_n (lanes, 2): iters, nnz)."""
+    out_n (lanes, 3): iters, nnz and the tile pairs pass 1 computed over
+    the lane's iterations). tile_skip=False computes every tile pair (the
+    same outputs bit for bit)."""
     dev = y0.device
     n, m = x.shape[-2], y0.shape[1]
     _check_lanes(lanes)
@@ -913,7 +992,7 @@ def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
         pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
         2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d, p.eps,
         p.eps_2, p.min_step, p.max_step, *p.ell_anneal_values)
-    hi = (ctypes.c_int * 4)(*p.ell_anneal_iters, p.max_iter)
+    hi = (ctypes.c_int * 5)(*p.ell_anneal_iters, p.max_iter, int(tile_skip))
     info = (ctypes.c_int * 4)()
     plan, _, _ = _plan_for(ALIGN, "align_fused_geometry", n, m, dev)
     fn = _fn(ALIGN, "align_fused_launch",
@@ -924,7 +1003,7 @@ def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
              + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     bits, fpart, npart, spart = _scratch(plan, dev, lanes=lanes)
     out_f = torch.empty((lanes, 13), dtype=torch.float32, device=dev)
-    out_n = torch.empty((lanes, 2), dtype=torch.int32, device=dev)
+    out_n = torch.empty((lanes, 3), dtype=torch.int32, device=dev)
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(y0), _ptr(fy), _ptr(my), n,
              m, lanes, x_lane, plan.chunks, plan.tiles_per_chunk, _ptr(init),
              hf, hi, _ptr(bits), _ptr(fpart), _ptr(npart), _ptr(spart),
@@ -933,16 +1012,21 @@ def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
     if launch_info is not None:
         launch_info.update(grid=info[0], blocks_per_sm=info[1], sms=info[2],
                            items=info[3], lanes=lanes, chunks=plan.chunks,
-                           tiles_per_chunk=plan.tiles_per_chunk)
+                           tiles_per_chunk=plan.tiles_per_chunk,
+                           tiles=out_n[:, 2],
+                           tile_pairs=plan.row_tiles * plan.col_tiles)
     return out_f, out_n
 
 
 def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
-                     launch_info: dict | None = None):
+                     launch_info: dict | None = None, tile_skip=True):
     """The cooperative align kernel: same function and tuple as
     align_fused_plain, in one launch (the launch of one lane). A
     `launch_info` dict receives the launch's grid, blocks per SM, SM count,
-    work items and the split."""
+    work items, the split, the tile pairs pass 1 computed over the
+    iterations (`tiles`, a device tensor of one lane) and the tile pairs of
+    one sweep (`tile_pairs`). tile_skip=False computes every tile pair (the
+    same outputs bit for bit)."""
     dev = x.device
     _check_cloud("fixed", x, fx, mx, x.shape[0], dev)
     _check_cloud("moving", y0, fy, my, y0.shape[0], dev)
@@ -950,7 +1034,7 @@ def align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams,
     _check("T0", T0, torch.float32, (3,), dev)
     out_f, out_n = _align_launch(
         x, fx, mx, y0[None], fy[None], my[None], R0[None], T0[None],
-        _as_ell(ell0, dev).reshape(1), p, 1, launch_info)
+        _as_ell(ell0, dev).reshape(1), p, 1, launch_info, tile_skip)
     ALIGN.count_launch()
     return (out_f[0, :9].reshape(3, 3), out_f[0, 9:12], out_f[0, 12],
             out_n[0, 0], out_n[0, 1])
@@ -969,14 +1053,17 @@ def align_fused_lanes_plain(x, fx, mx, y0, fy, my, R0, T0, ell0,
 
 
 def align_fused_lanes_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0,
-                           p: CvoParams, launch_info: dict | None = None):
+                           p: CvoParams, launch_info: dict | None = None,
+                           tile_skip=True):
     """The cooperative align kernel over S lanes in one launch: same
     function and tuple as align_fused_lanes_plain. A `launch_info` dict
-    receives the grid, blocks per SM, SMs, work items, lanes and the
-    split."""
+    receives the grid, blocks per SM, SMs, work items, lanes, the split,
+    each lane's computed tile pairs (`tiles`) and the tile pairs of one
+    sweep (`tile_pairs`). tile_skip=False computes every tile pair (the
+    same outputs bit for bit)."""
     lanes = y0.shape[0]
     out_f, out_n = _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p,
-                                 lanes, launch_info)
+                                 lanes, launch_info, tile_skip)
     ALIGN_LANES.count_launch()
     return (out_f[:, :9].reshape(lanes, 3, 3), out_f[:, 9:12], out_f[:, 12],
             out_n[:, 0], out_n[:, 1])

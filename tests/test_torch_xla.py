@@ -279,6 +279,34 @@ def test_xla_tracking_matches_jax(seq, monkeypatch):  # noqa: F811
     assert err.max() < 0.05, err
 
 
+def test_xla_first_pair_matches_jax(tmp_path):
+    """chip_smoke.py's frames 0 -> 1 (the synthetic sequence, seed 7,
+    640x480, CAP 3072), aligned from the identity at ell 0.15 by the
+    port's xla and by the JAX package's xla on the CPU: iterations within
+    ALIGN_ITERS_SPREAD (5, chip_smoke.py), end transforms within 1.1e-3 m
+    and rad (its ALIGN_PAIRS_GAP). On this pair the stop fires where the
+    flow oscillates at ell 0.03 (the se3-distance rule, at an iteration
+    whose step is ~0.03), so the count moves with the last bits of the
+    sums (tests/test_torch_xla_orders.py: 29 to 58 iterations over f32
+    orders and CPU thread counts, the JAX package's xla 47 and its pass in
+    a Python loop 59; PERF.md, PR 11); the test holds this port's order at
+    two CPU threads."""
+    from test_torch_xla_orders import first_pair_clouds
+    (jf, jm), (tf, tm) = first_pair_clouds(str(tmp_path))
+    p = SlamConfig.default_shipped().cvo
+    want = jengine.align(jf, jm, jnp.eye(3), jnp.zeros(3), jnp.float32(0.15),
+                         p, "xla")
+    got = tengine.align(tf, tm, torch.eye(3), torch.zeros(3),
+                        torch.tensor(0.15), from_reference(p), "xla")
+    assert int(want.iters) < p.max_iter
+    assert abs(int(got.iters) - int(want.iters)) <= 5, \
+        (int(got.iters), int(want.iters))
+    assert float(got.ell) == float(want.ell)
+    t_got, t_want = got.transform.numpy(), np.asarray(want.transform)
+    np.testing.assert_allclose(t_got[:3, 3], t_want[:3, 3], atol=1.1e-3)
+    assert _rot_angle(t_got[:3, :3], t_want[:3, :3]) < 1.1e-3
+
+
 def test_clis_take_xla(seq, tmp_path, monkeypatch):  # noqa: F811
     """run_slam and run_odometry read CVO_SLAM_BACKEND=xla (no flag): their
     stats name it, and every pose is finite."""
