@@ -37,11 +37,12 @@ differences of the sums into different iteration counts); last,
 chip_smoke's phase 3 (tracking under pallas_mom) with its iterations per
 alignment. Run several in one call to compare them. With two roots (the
 parent and the change), each runs in a process of its own, in turn, and
-a last line sets their one-lane align_fused and suite side by side:
-whether each tree's outputs on chip_smoke's frame pairs 0 -> 1 .. 5 -> 6
-(align_fused from the identity at ell 0.15) and on frames 0 -> 1 (the
-suite, both ells) are bitwise equal to the other's, and each tree's
-device us per align_fused iteration (frames 0 -> 1) and suite device ms.
+a last line sets their one-lane align_fused, suite and pair stats side
+by side: whether each tree's outputs on chip_smoke's frame pairs 0 -> 1 ..
+5 -> 6 (align_fused from the identity at ell 0.15) and on frames 0 -> 1
+(the suite and pair stats in both modes, both ells) are bitwise equal to
+the other's, and each tree's device us per align_fused iteration (frames
+0 -> 1) and suite device ms.
 
 speculation: chip_smoke's tracking phase (16 frames; pallas_iter 8) on
 each backend with CVO_SLAM_SPECULATE=0, 1, 1, 0 in turns: ms/frame and the
@@ -219,9 +220,9 @@ def _summary(rows):
 
 
 def solo_outputs(cs, clouds, p, ell_suite, yt):
-    """The one-lane align_fused outputs on chip_smoke's frame pairs and the
-    suite's on frames 0 -> 1 at each of chip_smoke's ells, as host arrays
-    by name."""
+    """The one-lane align_fused outputs on chip_smoke's frame pairs, and the
+    suite's and pair stats' (both modes; rows yt, columns frame 0) on
+    frames 0 -> 1 at each of chip_smoke's ells, as host arrays by name."""
     from cvo_slam_tpu_torch.cvo import kernels
     out = {}
     for k in range(len(clouds) - 1):
@@ -233,12 +234,16 @@ def solo_outputs(cs, clouds, p, ell_suite, yt):
         for i, t in enumerate(kernels.ip_suite_cuda(x, fx, mx, y, fy, my, yt,
                                                     ell, p)):
             out[f"suite {ell} {i}"] = t.cpu().numpy()
+        for mom in (False, True):
+            for i, t in enumerate(kernels.pair_stats_cuda(
+                    yt, fy, my, x, fx, mx, ell, p, mom)):
+                out[f"pair_stats {ell} {mom} {i}"] = t.cpu().numpy()
     return out
 
 
 def side_by_side(roots) -> int:
     """kernels_mode of each root in a process of its own, then the S = 1
-    align_fused and suite of the roots side by side."""
+    align_fused, suite and pair stats of the roots side by side."""
     import subprocess
     import numpy as np
     tmp = tempfile.mkdtemp(prefix="chip_compare_")
@@ -257,7 +262,8 @@ def side_by_side(roots) -> int:
         times = {root: {k[5:]: float(d[k]) for k in d.files
                         if k.startswith("time ")}
                  for root, d in zip(roots, dumps)}
-        print(f"one-lane align_fused and suite, {roots[0]} against "
+        print(f"one-lane align_fused, suite and pair stats, {roots[0]} "
+              f"against "
               f"{roots[1]}: {len(outs) - len(differ)} of {len(outs)} outputs "
               f"bitwise equal{'' if not differ else f' (differ: {differ})'}; "
               f"device times {times}", flush=True)

@@ -25,13 +25,15 @@ Phases; any failure exits non-zero:
      plain version as much as for the kernel (measured against an f64
      evaluation of the same Mom). Times by CUDA events (median of 5 runs
      of 10 calls: the wrapper's host work included) and the kernels' own
-     device time (torch.profiler over 20 calls) beside the plain version's
-     time and the bound;
+     device time (torch.profiler over 20 calls; where the profiler lost
+     kernels in every window, queued_device_ms) beside the plain
+     version's time and the bound;
      The pair-stats kernel is held the same way, with and without
      moments: value and count, G and inliers, two launches bitwise equal.
+     The suite's and pair stats' bounds count only the pairs of the tile
+     pairs their skipping sweeps compute.
      The profiler's launches per call are held at most 2 for the moment
-     kernel and 1 for the suite and for pair stats in each mode, and a
-     kernel whose device time the profiler does not see fails the phase.
+     kernel and 1 for the suite and for pair stats in each mode.
      The per-pair align
      kernels: flow_and_step, flow and step_coeffs (csrc/flow_step.cu)
      against their plain versions at the same capacities and ells, nnz
@@ -55,24 +57,35 @@ Phases; any failure exits non-zero:
      launch bit for bit (S = 1: the solo wrapper); the suite on frames
      l -> l + 1 as 1 and 4 lanes (yt under TWIST, ells alternating), each
      lane equal to its solo launch bit for bit, counts equal to the plain
-     lanes' and sums and G at the suite's bars. Each lane call is one
-     kernel launch in the profiler; its device ms is printed beside the
-     S solo launches';
+     lanes' and sums and G at the suite's bars; pair stats' lanes
+     (kernels.pair_stats_lanes) in the loop-closure shape, rows frames
+     1 .. 4 under TWIST, columns the shared frame 0, both modes, each lane
+     equal to its solo launch bit for bit and at pair stats' bars against
+     the plain lanes. Each lane call is one kernel launch (the wrappers'
+     counts, and no more in the profiler); its device ms is printed beside
+     the S solo launches'. At CAP 3000
+     (the lanes 3008 points apart, engine.stack_clouds) every lane of
+     align_fused_lanes (distinct and shared fixed clouds), ip_suite_lanes
+     and pair_stats_lanes (both modes, shared and stacked columns) equal
+     to its solo launch bit for bit;
      flow and step_coeffs lie on no path (only the JAX package's tests
      call them): their launches are those of these checks, and each
      flow_and_step launch of the main path runs both passes once more.
-     Tile skipping (the gate sweeps of the moment kernel, flow_and_step,
-     flow, step_coeffs and align_fused skip the tile pairs whose boxes lie
-     beyond the gate radius): at CAP 3072 and 3000, ell 0.15 and 0.06,
-     each skipping launch bitwise equal to its tile_skip=False launch
-     (outputs and keep bitmasks; align_fused on frames 0 -> 1 from the
-     identity at each ell; its lanes at CAP 3072, frames k -> k + 1 on
-     distinct fixed clouds and frames 1 .. against frame 0), at least one
-     tile pair skipped in each (in every lane), the unskipped launch one
-     sweep's tile pairs (align_fused: one a evaluated iteration), and the
+     Tile skipping (the gate sweeps of all seven functions skip the tile
+     pairs whose boxes lie beyond the gate radius): at CAP 3072 and 3000,
+     ell 0.15 and 0.06, each skipping launch bitwise equal to its
+     tile_skip=False launch (outputs and keep bitmasks; align_fused on
+     frames 0 -> 1 from the identity at each ell; its lanes at CAP 3072,
+     frames k -> k + 1 on distinct fixed clouds and frames 1 .. against
+     frame 0; pair stats in both modes, rows frame 1 under TWIST; the
+     suite; the suite as 4 lanes; pair stats' lanes, 4, both modes), at
+     least one tile pair skipped in each (in every align_fused lane), the
+     unskipped launch one sweep's tile pairs (align_fused: one a evaluated
+     iteration; the suite and lanes: every set of every lane), and the
      count the kernel reports equal to kernels.tile_flags_plain's where it
-     sweeps the clouds as given; the skip fraction, and the device ms with
-     and without skipping at CAP 3072 (in turns: skipping, not, not,
+     sweeps the clouds as given (every set of every lane of the suite and
+     of pair stats); the skip fraction, and the device ms with and without
+     skipping at CAP 3072 (queued_device_ms, in turns: skipping, not, not,
      skipping);
   2m. the sharded align (parallel.batch.make_sharded_align): SHARDED_LANES
      lanes on the frame-0 cloud (the moving clouds frames 1 ..) over a
@@ -113,8 +126,9 @@ Phases; any failure exits non-zero:
      flow_and_step at least once per align iteration, position error
      below 0.05 m;
   3s. phases 3, 3b and 3c again with every main-path wrapper's
-     tile_skip=False (the sweeps compute every tile pair): each trajectory
-     equal to the skipping run's line for line;
+     tile_skip=False (the sweeps compute every tile pair; the suite and
+     pair stats included): each trajectory equal to the skipping run's
+     line for line;
   4. SLAM: the whole system (SlamConfig.default_shipped(), OnlyTracking
      False: tracking, keyframe graph, ORB + BoW, loop closure, windowed BA,
      final BA, frame-list refinement) through app.run_slam.run on a
@@ -159,6 +173,14 @@ Phases; any failure exits non-zero:
      verify and overlap ms; at ORB 5000 the device matcher must run at
      least once; in phase 4 every device matching is held byte for byte
      against the host match_bow on the same keyframes;
+  4v. the largest loop-closure round of phase 4b's walk (pallas) and of
+     phase 4's (verified under xla) as one engine.lc_verify_batch call of
+     all its candidates, at CAP 3072 and cut to CAP 3000, counters set to
+     0 just before and read just after: each candidate bitwise equal to
+     its one-candidate call, 8 pair_stats_lanes launches a call and no
+     pair_stats launch (under pallas one align_fused_lanes launch), wall
+     ms beside the one-candidate calls'; its launches are
+     pair_stats_lanes' main-path count;
   4d. the walk of phase 4b with UseMultiThreading (the async backend):
      the same keyframe ids, timestamps and count as phase 4b, positions
      within 1e-6 m, at least one accepted edge; frame-loop and whole run()
@@ -211,7 +233,9 @@ Each phase prints its wall time. No earlier phase is cut in depth: the
 whole run took 661.9-756.0 s of the 1200 s limit on an NVIDIA H100 80GB
 HBM3 at 700.00 W with phases 3s and 4l and the tile-skip checks (642.0 s
 before them; its largest parts are phase 4g's generation of 220 frames,
-~200 s, and phase 3e's lockstep runs, ~100 s).
+~200 s, and phase 3e's lockstep runs, ~100 s); phase 4v, the lanes at CAP
+3000 and the pair sets' skip checks came after (4v took 50.2 s on the
+same card in its first run).
 
 The bound of a kernel is the larger of issued fp32 instructions / 33.5 T
 instructions/s (132 SMs x 128 lanes x 1.98 GHz on an H100 SXM at 700 W)
@@ -317,6 +341,7 @@ DEVICE_NAMES = {
     "align_fused": ("align_kernel",),
     "align_fused_lanes": ("align_kernel",),
     "ip_suite_lanes": ("suite_",),
+    "pair_stats_lanes": ("pair_stats_sweep",),
 }
 
 
@@ -353,6 +378,35 @@ def cuda_time_ms(fn, reps=10, trials=5):
     return times[len(times) // 2]
 
 
+def queued_device_ms(fn, reps, tries=3):
+    """Device ms per call of `reps` calls of fn queued behind a sleeping
+    kernel (torch.cuda._sleep): CUDA events around calls the device runs
+    back to back, so the host's launch work is hidden; every device
+    operation of the call is counted (the wrapper's fills too) and the
+    gaps between them (a few us). Held: the device had not reached the
+    start event when the host had queued every call, else the sleep is
+    lengthened, up to `tries` times, and then fails."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 25
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 8
+    raise AssertionError(f"the host did not queue {reps} calls within a "
+                         f"sleep of {cycles // 8} cycles")
+
+
 def device_profile(fn, names, reps=20, windows=5):
     """(mean device time per call in ms, kernel launches per call) of the
     CUDA kernels of `fn` whose names contain one of `names`, from
@@ -361,14 +415,17 @@ def device_profile(fn, names, reps=20, windows=5):
     cuda_time_ms includes). The profiler now and then returns a window
     without device events, or with some of them lost (a count of kernels
     that is not a multiple of `reps`: every call launches the same
-    kernels); such a window is taken again, up to `windows` windows. The
-    time is None if no window held every launch: a window that lost
-    events would read too fast."""
+    kernels); such a window is taken again, up to `windows` windows. If
+    no window held every launch (on the H100 the profiler was seen to
+    lose more events in each window it took), the time is
+    queued_device_ms's, which counts the call's other device operations
+    too, and the launches per call are the most any window saw (events
+    are lost, never added, so that bounds the count from below)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    per_call = 0.0
+    seen = []
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -377,11 +434,15 @@ def device_profile(fn, names, reps=20, windows=5):
         ours = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and any(k in e.name for k in names)]
-        per_call = len(ours) / reps
+        seen.append(len(ours))
         if ours and len(ours) % reps == 0:
             us = sum(e.time_range.elapsed_us() for e in ours)
-            return us / reps / 1e3, per_call
-    return None, per_call
+            return us / reps / 1e3, len(ours) / reps
+    t = queued_device_ms(fn, reps)
+    print(f"  profiler windows held {seen} kernels of {names} over {reps} "
+          f"calls: device {t:.4f} ms per call by queued CUDA events",
+          flush=True)
+    return t, max(seen) / reps
 
 
 def device_time_ms(fn, names, reps=20):
@@ -452,10 +513,10 @@ def pair_stats_counts(xa, fa, ma, xb, fb, mb, ell, p, with_moments):
     tested first (it passes far fewer pairs): geometric distance of a valid
     pair 8, colour distance of a pair inside the geometric gate 10, a gated
     pair 12, and with moments W U(xb) of a gated pair 36 (the suite's post
-    set)."""
+    set); only the pairs of the tile pairs a skipping sweep computes."""
     import torch
     from cvo_slam_tpu_torch.ops import pairwise
-    valid = ma[:, None] & mb[None, :]
+    valid = ma[:, None] & mb[None, :] & live_pairs(xa, ma, xb, mb, ell, p)
     d2 = ((xa[:, None, :] - xb[None, :, :]) ** 2).sum(-1)
     geo = valid & (d2 < pairwise.d2_threshold(torch.tensor(ell), p).item())
     d2c = ((fa[:, None, :] - fb[None, :, :]) ** 2).sum(-1)
@@ -691,18 +752,12 @@ def kernel_checks(clouds, p, report):
 def _record(entry, ell, t_k, t_p, b, by, ops, mode="", device=None,
             per_call=None, max_per_call=None):
     """Print one timing: t_k the CUDA-event time per wrapper call (host work
-    included), `device` the kernels' own device time per call (None, where
-    no profiler window held every launch, fails the phase), per_call the
-    profiler's kernel
-    launches per wrapper call (held at max_per_call when given); keep it
+    included), `device` the device time per call (device_profile),
+    per_call the profiler's kernel launches per wrapper call (held at
+    max_per_call when given); keep it
     under times_by_ell (mode-suffixed keys for a second mode) and as the
     entry's headline at the first ell without a mode."""
     tag = f" {mode}" if mode else ""
-    if device is None:
-        raise AssertionError(f"{entry['name']}{tag}: no profiler window held "
-                             f"every launch of its kernels "
-                             f"{DEVICE_NAMES[entry['name']]} (last window "
-                             f"{per_call:g} per call)")
     if max_per_call is not None and per_call > max_per_call:
         raise AssertionError(f"{entry['name']}{tag}: {per_call} kernel "
                              f"launches per call, at most {max_per_call}")
@@ -936,9 +991,6 @@ def align_checks(seq, p, report):
                        trials=3)
     t_d = device_time_ms(lambda: kernels.align_fused_cuda(*args),
                          DEVICE_NAMES["align_fused"], reps=5)
-    if t_d is None:
-        raise AssertionError("align_fused: no profiler window held every "
-                             f"launch of {DEVICE_NAMES['align_fused']}")
     t_p = cuda_time_ms(lambda: kernels.align_fused_plain(*args), reps=1,
                        trials=3)
     print(f"align_fused CAP {CAPS[0]}: {t_k:.4f} ms per alignment (device "
@@ -955,9 +1007,11 @@ def align_checks(seq, p, report):
 
 def _stack(clouds):
     """(positions, features, mask) of a list of clouds, each stacked on a
-    leading lane axis."""
-    import torch
-    return tuple(torch.stack([c[i] for c in clouds]) for i in range(3))
+    leading lane axis as the lane kernels take them at any capacity
+    (engine.stack_clouds)."""
+    from cvo_slam_tpu_torch.cvo import engine
+    return tuple(engine.stack_clouds([engine.PointCloud(*c)
+                                      for c in clouds]))
 
 
 def _lanes_equal_solo(name, got, solos):
@@ -972,17 +1026,24 @@ def _lanes_equal_solo(name, got, solos):
 
 def _lane_profile(name, fn, solo_fn, lanes, reps=3):
     """(device ms of one lane launch, device ms of its `lanes` solo
-    launches): each by torch.profiler, held at one kernel launch per lane
-    call and `lanes` per round of solo calls."""
+    launches): each by device_profile. Held at one kernel launch per lane
+    call and `lanes` per round of solo calls by the wrappers' launch
+    counts, and by the profiler's kernels, which may only lose launches."""
+    from cvo_slam_tpu_torch.cvo import kernels
+
+    def launches(f):
+        before = sum(k.launches for k in kernels.KERNELS)
+        f()
+        return sum(k.launches for k in kernels.KERNELS) - before
+
     names = DEVICE_NAMES[name]
+    n_call, n_solo = launches(fn), launches(solo_fn)
     t_d, per_call = device_profile(fn, names, reps=reps)
     t_s, per_solo = device_profile(solo_fn, names, reps=reps)
-    if t_d is None or t_s is None:
-        raise AssertionError(f"{name}: no profiler window held every launch "
-                             f"of {names}")
-    if per_call != 1 or per_solo != lanes:
-        raise AssertionError(f"{name}: {per_call} launches per lane call, "
-                             f"{per_solo} per {lanes} solo calls")
+    if (n_call, n_solo) != (1, lanes) or per_call > 1 or per_solo > lanes:
+        raise AssertionError(f"{name}: {n_call} launches per lane call, "
+                             f"{n_solo} per {lanes} solo calls (profiler: "
+                             f"{per_call}, {per_solo})")
     return t_d, t_s
 
 
@@ -1136,6 +1197,118 @@ def lane_checks(seq, p, report):
         entry.update(ms=t_k, device_ms=t_d, solo_device_ms=t_s, plain_ms=t_p,
                      bound_ms=b, bound_by=by, lanes=S)
 
+    # 4. pair stats' lanes in the loop-closure shape: rows frames 1 .. 4
+    #    under TWIST (their features and masks), columns the shared frame-0
+    #    cloud, ells alternating; without moments (six of the eight calls
+    #    of a round) and with them
+    entry = report["pair_stats_lanes"]
+    S = 4
+    movs = seq[1:S + 1]
+    yts = [se3.transform_points(tw, m[0]).contiguous() for m in movs]
+    ells = torch.tensor([ELLS[l % 2] for l in range(S)], device=dev)
+    rows = (_stack([(t, m[1], m[2]) for t, m in zip(yts, movs)]))
+    for mom in (False, True):
+        pargs = (*rows, *seq[0], ells, p, mom)
+
+        def solos():
+            return [kernels.pair_stats_cuda(yts[l], *movs[l][1:], *seq[0],
+                                            ells[l], p, mom)
+                    for l in range(S)]
+        got = kernels.pair_stats_lanes_cuda(*pargs)
+        _lanes_equal_solo(f"pair_stats {S} lanes", got, solos())
+        want = kernels.pair_stats_lanes_plain(*pargs)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]) or (
+                mom and not torch.equal(got[3], want[3])):
+            raise AssertionError(f"pair_stats lanes counts: {got[1].tolist()}"
+                                 f" != {want[1].tolist()}")
+        err = check_close("pair_stats lanes value", got[0], want[0], 1e-4,
+                          0.0)
+        if mom:
+            scale = max(float(want[2].abs().max()), 1.0)
+            err = max(err, check_close("pair_stats lanes G", got[2] / scale,
+                                       want[2] / scale, 0.0, 1e-5) * scale)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        t_k = cuda_time_ms(lambda: kernels.pair_stats_lanes_cuda(*pargs))
+        t_d, t_s = _lane_profile(
+            "pair_stats_lanes",
+            lambda: kernels.pair_stats_lanes_cuda(*pargs), solos, S)
+        t_p = cuda_time_ms(lambda: kernels.pair_stats_lanes_plain(*pargs),
+                           reps=1)
+        counts = [pair_stats_counts(yts[l], *movs[l][1:], *seq[0],
+                                    float(ells[l]), p, mom)
+                  for l in range(S)]
+        b, by = bound_ms(sum(c[0] for c in counts),
+                         sum(c[1] for c in counts))
+        mode = " moments" if mom else ""
+        print(f"pair_stats{mode} {S} lanes (CAP {CAPS[0]}, rows frames 1 .. "
+              f"{S} under TWIST, columns frame 0, ells "
+              f"{[float(e) for e in ells]}): every lane equal to its solo "
+              f"launch bit for bit, counts equal to the plain lanes', max "
+              f"|err| {err:.3e}; {t_k:.4f} ms per call, device {t_d:.4f} ms "
+              f"in 1 launch against {t_s:.4f} ms in {S} solo launches; plain "
+              f"{t_p:.2f} ms; bound {b:.4f} ms ({by}), {b / t_d:.1%} on the "
+              f"device", flush=True)
+        entry["times_by_ell"]["lanes" + mode] = dict(
+            ms=t_k, device_ms=t_d, solo_device_ms=t_s, plain_ms=t_p,
+            bound_ms=b)
+        if not mom:
+            entry.update(ms=t_k, device_ms=t_d, solo_device_ms=t_s,
+                         plain_ms=t_p, bound_ms=b, bound_by=by, lanes=S)
+
+
+def lanes_any_capacity(seq, p):
+    """Phase 2, the lane kernels at a capacity that is not a multiple of 16
+    (seq: the sequence's first ALIGN_PAIRS + 1 clouds at CAP 3000, stacked
+    by engine.stack_clouds): every lane of align_fused_lanes (frames k ->
+    k + 1 on distinct fixed clouds, and frames 1 .. against frame 0),
+    ip_suite_lanes (frames l -> l + 1, 4 lanes) and pair_stats_lanes (both
+    modes; columns the shared frame 0 and each lane's own) bitwise equal
+    to its solo launch."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.ops import se3
+    dev, cap = seq[0][0].device, seq[0][0].shape[0]
+    S = ALIGN_PAIRS
+    init = (torch.eye(3, device=dev).expand(S, 3, 3).contiguous(),
+            torch.zeros(S, 3, device=dev), torch.full((S,), ELLS[0],
+                                                      device=dev))
+    movs = seq[1:S + 1]
+    for fixed, what in ((seq[:S], "distinct"), ([seq[0]] * S, "shared")):
+        x = _stack(fixed) if what == "distinct" else seq[0]
+        got = kernels.align_fused_lanes_cuda(*x, *_stack(movs), *init, p)
+        _lanes_equal_solo(f"align_fused lanes CAP {cap} ({what})", got, [
+            kernels.align_fused_cuda(*fixed[l], *movs[l],
+                                     init[0][l].contiguous(),
+                                     init[1][l].contiguous(), init[2][l], p)
+            for l in range(S)])
+    S = 4
+    tw = se3.exp_se3(torch.tensor(TWIST, device=dev))
+    yts = [se3.transform_points(tw, seq[l + 1][0]).contiguous()
+           for l in range(S)]
+    ells = torch.tensor([ELLS[l % 2] for l in range(S)], device=dev)
+    got = kernels.ip_suite_lanes_cuda(*_stack(seq[:S]), *_stack(seq[1:S + 1]),
+                                      torch.stack(yts), ells, p)
+    _lanes_equal_solo(f"ip_suite lanes CAP {cap}", got, [
+        kernels.ip_suite_cuda(*seq[l], *seq[l + 1], yts[l], ells[l], p)
+        for l in range(S)])
+    rows = _stack([(t, m[1], m[2]) for t, m in zip(yts, seq[1:S + 1])])
+    for mom in (False, True):
+        for cols, what in ((seq[0], "shared"),
+                           (_stack(seq[1:S + 1]), "stacked")):
+            got = kernels.pair_stats_lanes_cuda(*rows, *cols, ells, p, mom)
+            _lanes_equal_solo(
+                f"pair_stats lanes CAP {cap} ({what}, moments {mom})", got,
+                [kernels.pair_stats_cuda(
+                    yts[l], *seq[l + 1][1:],
+                    *(seq[0] if what == "shared" else seq[l + 1]), ells[l],
+                    p, mom) for l in range(S)])
+    print(f"lanes at CAP {cap} (lane stride {rows[2].stride(0)} points): "
+          f"align_fused_lanes ({ALIGN_PAIRS} lanes, distinct and shared "
+          f"fixed clouds), ip_suite_lanes ({S} lanes) and pair_stats_lanes "
+          f"({S} lanes, both modes, shared and stacked columns): every lane "
+          f"equal to its solo launch bit for bit", flush=True)
+
 
 def _skip_pair(name, run, cap, ell):
     """Runs run(tile_skip) -> (outputs, launch_info) skipping and not;
@@ -1162,16 +1335,21 @@ def skip_checks(clouds, seq, p, report):
     """Phase 2, tile skipping (module docstring): every skipping launch
     against its tile_skip=False launch, bitwise, at CAP 3072 / 3000 and
     ell 0.15 / 0.06; the tile pairs computed (the kernels' count) against
-    kernels.tile_flags_plain where the kernel sweeps fixed clouds; the skip
+    kernels.tile_flags_plain where the kernel sweeps fixed clouds (pair
+    stats, the suite and their lanes: every set of every lane); the skip
     fraction and the device ms with and without skipping at CAP 3072.
     seq: the sequence's first ALIGN_PAIRS + 1 clouds at CAP 3072 (the
-    lanes run there only: a stack of lanes needs 16-byte lane strides,
-    which CAP 3000's masks do not have)."""
+    align_fused lanes)."""
     import torch
     from cvo_slam_tpu_torch.cvo import kernels
     from cvo_slam_tpu_torch.ops import pairwise
     rows = _geometry_rows()
     fracs = {}
+
+    def flags(a, ma, b, mb, e):
+        return int(kernels.tile_flags_plain(a, ma, b, mb, e, rows,
+                                            kernels.KEEP_WORD, p,
+                                            slack=True).sum())
 
     def record(name, cap, ell, tiles, full, plain=None, pairs=None):
         # one sweep's pairs, unskipped; skipping, tile_flags_plain's count
@@ -1255,6 +1433,8 @@ def skip_checks(clouds, seq, p, report):
                 raise AssertionError(f"align_fused: {f} tile pairs unskipped"
                                      f" over {iters} iterations")
             record("align_fused", cap, ell, t, f)
+            pair_set_skips(x, fx, mx, y, fy, my, e, p, cap, ell, flags,
+                           record)
     # the lanes: frames k -> k + 1 (distinct fixed clouds) and frames 1 ..
     # against frame 0 (one fixed cloud), ALIGN_PAIRS lanes each, at both
     # start ells
@@ -1287,7 +1467,8 @@ def skip_checks(clouds, seq, p, report):
             if what == "distinct":
                 record("align_fused_lanes", cap, ell, t, f)
     print("tile skipping, skipping launches bitwise equal to the unskipped "
-          "ones, skip fraction (of the gate sweep's tile pairs): "
+          "ones, skip fraction (of the gate sweep's tile pairs; the suite's "
+          "over its four sets): "
           + "; ".join(f"{n} CAP {c} ell {e} {v:.1%}"
                       for (n, c, e), v in fracs.items()), flush=True)
 
@@ -1300,64 +1481,119 @@ def skip_checks(clouds, seq, p, report):
     for ell in ELLS:
         e = torch.tensor(ell, device=x.device)
         omega, v, _ = kernels.flow_plain(*args, e, p)
-        calls[("moment_flow_step", ell)] = lambda s, e=e: \
+        calls[("moment_flow_step", ell, "")] = lambda s, e=e: \
             kernels.moment_pass_cuda(*args, U, e, p, tile_skip=s)
-        calls[("flow_and_step", ell)] = lambda s, e=e: \
+        calls[("flow_and_step", ell, "")] = lambda s, e=e: \
             kernels.flow_and_step_cuda(*args, e, p, tile_skip=s)
-        calls[("flow", ell)] = lambda s, e=e: kernels.flow_cuda(
+        calls[("flow", ell, "")] = lambda s, e=e: kernels.flow_cuda(
             *args, e, p, tile_skip=s)
-        calls[("step_coeffs", ell)] = lambda s, e=e, o=omega, w=v: \
+        calls[("step_coeffs", ell, "")] = lambda s, e=e, o=omega, w=v: \
             kernels.step_coeffs_cuda(*args, o, w, e, p, tile_skip=s)
+        for (name, mode), (run, _) in pair_set_launches(
+                x, fx, mx, y, fy, my, e, p).items():
+            calls[(name, ell, mode)] = lambda s, run=run: run(s, None)
     e0 = torch.tensor(ELLS[0], device=x.device)
-    calls[("align_fused", ELLS[0])] = lambda s: kernels.align_fused_cuda(
+    calls[("align_fused", ELLS[0], "")] = lambda s: kernels.align_fused_cuda(
         x, fx, mx, y, fy, my, torch.eye(3, device=x.device),
         torch.zeros(3, device=x.device), e0, p, tile_skip=s)
     largs = (*_stack(seq[:S]), *_stack(seq[1:S + 1]),
              torch.eye(3, device=x.device).expand(S, 3, 3).contiguous(),
              torch.zeros(S, 3, device=x.device),
              torch.full((S,), ELLS[0], device=x.device), p)
-    calls[("align_fused_lanes", ELLS[0])] = lambda s: \
+    calls[("align_fused_lanes", ELLS[0], "")] = lambda s: \
         kernels.align_fused_lanes_cuda(*largs, tile_skip=s)
-    for (name, ell), fn in calls.items():
+    for (name, ell, mode), fn in calls.items():
         reps = 5 if name.startswith("align") else 20
-        times = [_device_ms(lambda: fn(s), name, reps)
+        times = [queued_device_ms(lambda: fn(s), reps)
                  for s in (True, False, False, True)]
         on, off = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
-        print(f"{name} CAP {CAPS[0]} ell {ell}: device {on:.4f} ms with tile "
-              f"skipping, {off:.4f} ms without ({on / off:.2f}x; skip "
+        tag = f" {mode}" if mode else ""
+        print(f"{name}{tag} CAP {CAPS[0]} ell {ell}: device {on:.4f} ms with "
+              f"tile skipping, {off:.4f} ms without ({on / off:.2f}x; skip "
               f"fraction {fracs[(name, CAPS[0], ell)]:.1%})", flush=True)
-        report[name].setdefault("device_ms_unskipped", {})[str(ell)] = off
-        report[name].setdefault("device_ms_skipping", {})[str(ell)] = on
+        key = str(ell) + tag
+        report[name].setdefault("device_ms_unskipped", {})[key] = off
+        report[name].setdefault("device_ms_skipping", {})[key] = on
 
 
-def _device_ms(fn, name, reps, tries=3):
-    """Device ms per call of fn's kernels (DEVICE_NAMES[name]) from one
-    torch.profiler window of reps + 1 calls, the last reps calls' kernels
-    in start order. After phase 2's other windows the profiler was seen to
-    drop the first kernel of every window (the moment kernel's keep pass,
-    19 of 20), so the first call is not counted and a window that lost no
-    more than its kernels is kept; up to `tries` windows, else fails."""
+def pair_set_launches(x, fx, mx, y, fy, my, e, p):
+    """The launches of pair stats' sweep that skip_checks holds on one cloud
+    pair (x, y) at ell e: {(name, mode): (run(tile_skip, launch_info),
+    the (rows, row mask, columns, column mask) of each set of each lane in
+    the launch's tile-count order)}. Pair stats in both modes (rows y under
+    TWIST, columns x); the suite; the suite as 4 lanes (fixed clouds x, y,
+    x, y, moving y, x, y, x, each lane's post rows its moving cloud under a
+    multiple of TWIST); pair stats' lanes in both modes (rows those 4 post
+    clouds, columns the shared x)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    # one launch per kernel name per call (phase 2's launch bars)
-    k, seen = len(DEVICE_NAMES[name]), []
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps + 1):
-                fn()
-            torch.cuda.synchronize()
-        ours = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and any(n in e.name for n in DEVICE_NAMES[name])),
-                      key=lambda e: e.time_range.start)
-        seen.append(len(ours))
-        if reps * k <= len(ours) <= (reps + 1) * k:
-            return sum(e.time_range.elapsed_us()
-                       for e in ours[-reps * k:]) / reps / 1e3
-    raise AssertionError(f"{name}: no profiler window held the last {reps} "
-                         f"calls' {reps * k} kernels (windows held {seen})")
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.ops import se3
+
+    def moved(cloud, k):
+        tw = torch.tensor(TWIST, device=x.device) * k
+        return se3.transform_points(se3.exp_se3(tw), cloud).contiguous()
+
+    def suite_sets(x, mx, y, my, yt):
+        # pre, post, fixed, moving (kernels.SUITE_SETS)
+        return [(y, my, x, mx), (yt, my, x, mx), (x, mx, x, mx),
+                (y, my, y, my)]
+
+    yt = moved(y, 1.0)
+    S = 4
+    fixed = [(x, fx, mx), (y, fy, my)] * 2
+    moving = fixed[1:] + fixed[:1]
+    posts = [moved(moving[l][0], 0.5 + 0.25 * l) for l in range(S)]
+    ells = e.reshape(1).expand(S).contiguous()
+    fx_st, mv_st = _stack(fixed), _stack(moving)
+    post_st = kernels.stack_lanes(posts)
+    rows = _stack([(t, m[1], m[2]) for t, m in zip(posts, moving)])
+    out = {("ip_suite", ""): (
+        lambda s, i: kernels.ip_suite_cuda(x, fx, mx, y, fy, my, yt, e, p,
+                                           launch_info=i, tile_skip=s),
+        suite_sets(x, mx, y, my, yt)),
+        ("ip_suite_lanes", ""): (
+        lambda s, i: kernels.ip_suite_lanes_cuda(
+            *fx_st, *mv_st, post_st, ells, p, launch_info=i, tile_skip=s),
+        [q for l in range(S) for q in suite_sets(
+            fixed[l][0], fixed[l][2], moving[l][0], moving[l][2],
+            posts[l])])}
+    for mom in (False, True):
+        mode = "moments" if mom else ""
+        out[("pair_stats", mode)] = (
+            lambda s, i, mom=mom: kernels.pair_stats_cuda(
+                yt, fy, my, x, fx, mx, e, p, mom, launch_info=i,
+                tile_skip=s),
+            [(yt, my, x, mx)])
+        out[("pair_stats_lanes", mode)] = (
+            lambda s, i, mom=mom: kernels.pair_stats_lanes_cuda(
+                *rows, x, fx, mx, ells, p, mom, launch_info=i,
+                tile_skip=s),
+            [(posts[l], moving[l][2], x, mx) for l in range(S)])
+    return out
+
+
+def pair_set_skips(x, fx, mx, y, fy, my, e, p, cap, ell, flags, record):
+    """skip_checks on pair stats' sweep at one capacity and ell
+    (pair_set_launches): each launch bitwise equal to its tile_skip=False
+    launch, at least one tile pair skipped, the unskipped launch one
+    sweep's tile pairs in every set of every lane and the skipping one
+    tile_flags_plain's count there."""
+    for (name, mode), (run, sets) in pair_set_launches(
+            x, fx, mx, y, fy, my, e, p).items():
+        def pair(skip):
+            info = {}
+            return run(skip, info), info
+        t, f, info, full_info = _skip_pair(f"{name} {mode}", pair, cap, ell)
+        got = info["tiles"].reshape(-1).tolist()
+        pairs = full_info["tile_pairs"]
+        pairs = list(pairs) if isinstance(pairs, tuple) else [pairs]
+        full = full_info["tiles"].reshape(-1).tolist()
+        want = [flags(*q, e) for q in sets]
+        if got != want or full != pairs * (len(full) // len(pairs)):
+            raise AssertionError(f"{name} {mode}: tile pairs computed {got},"
+                                 f" tile_flags_plain {want}, unskipped "
+                                 f"{full} (CAP {cap}, ell {ell})")
+        record(name, cap, ell, t, f)
 
 
 def _geometry_rows():
@@ -1377,7 +1613,8 @@ def unskipped():
     from cvo_slam_tpu_torch.cvo import kernels
     saved = {n: getattr(kernels, n) for n in (
         "moment_pass_cuda", "flow_and_step_cuda", "align_fused_cuda",
-        "align_fused_lanes_cuda")}
+        "align_fused_lanes_cuda", "ip_suite_cuda", "ip_suite_lanes_cuda",
+        "pair_stats_cuda", "pair_stats_lanes_cuda")}
     for n, fn in saved.items():
         setattr(kernels, n, functools.partial(fn, tile_skip=False))
     try:
@@ -1950,8 +2187,9 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
     after. With check_matcher, every device descriptor matching is held
     against the host match_bow on the same keyframes, byte for byte.
     With `mesh` the windowed and final BA run on the sharded solvers.
-    Returns run()'s stats (with the launches and the windowed BAs' sizes)
-    and the keyframes as (id, timestamp, pose)."""
+    Returns run()'s stats (with the launches, the windowed BAs' sizes and
+    the arguments of every engine.lc_verify_batch call, `lc_calls`) and
+    the keyframes as (id, timestamp, pose)."""
     import numpy as np
     from cvo_slam_tpu_torch.app import run_slam
     from cvo_slam_tpu_torch.config import CAMERA_PRESETS, SlamConfig
@@ -1969,7 +2207,7 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
     from cvo_slam_tpu_torch.cvo import engine
     trackers, checked = [], dict(calls=0, differ=0)
     build, fetch = run_slam.build_tracker, matcher.fetch_match_bow
-    verify, verified = engine.lc_verify_batch, []
+    verify, verified, lc_calls = engine.lc_verify_batch, [], []
 
     def build_and_keep(*args, **kw):
         trackers.append(build(*args, **kw))
@@ -1977,6 +2215,7 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
 
     def verify_and_record(*args):
         verified.append(args[-1])
+        lc_calls.append(args)
         return verify(*args)
 
     def fetch_and_check(fut, ref, cur, nn_ratio, check_orientation=True):
@@ -2008,6 +2247,7 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
     graph = trackers[0].graph
     stats["launches"] = launches
     stats["wba_sizes"] = list(getattr(graph, "wba_sizes", []))
+    stats["lc_calls"] = lc_calls
     keyframes = [(kf.id, kf.timestamp, kf.pose.copy())
                  for kf in graph.keyframes()]
     rounds = [(round(r["ransac"], 1), round(r["verify"], 1),
@@ -2081,6 +2321,77 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
     if not ate_slam < 0.05:
         raise AssertionError(f"SLAM ATE {ate_slam} m >= 0.05 m")
     return stats, keyframes
+
+
+def lc_batch(calls, report, card):
+    """Phase 4v: the largest loop-closure round of a SLAM walk (`calls`,
+    slam()'s lc_calls: one engine.lc_verify_batch call per candidate, the
+    live detector's) as one lc_verify_batch call of all its candidates, at
+    CAP 3072 and with every cloud cut to its first 3000 points (CAP 3000),
+    under the walk's verification backend; counters set to 0 just before
+    each batched call and read just after. Each candidate's result
+    (AlignResult and lc dict) is held bitwise equal to its one-candidate
+    call, and the call to 8 pair_stats_lanes launches and no pair_stats
+    launch (under pallas one align_fused_lanes launch); the wall ms of the
+    batched call against the one-candidate calls'. Returns the launches of
+    the batched calls."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import engine, kernels
+    rounds = {}
+    for args in calls:
+        rounds.setdefault(id(args[0]), []).append(args)
+    batch = max(rounds.values(), key=len)
+    if len(batch) < 2:
+        raise AssertionError(f"no loop-closure round of 2 or more "
+                             f"candidates: {[len(r) for r in rounds.values()]}")
+    ref, p, backend = batch[0][0], batch[0][7], batch[0][8]
+    cands, R0, T0, ell0, priors, lc_priors = (
+        [a[k][0] for a in batch] for k in range(1, 7))
+    total = {}
+    for cap in CAPS:
+        def cut(c):
+            return engine.PointCloud(*(t[:cap] for t in c))
+        r, cs = cut(ref), [cut(c) for c in cands]
+
+        def solos():
+            return [engine.lc_verify_batch(r, [c], [R0[l]], [T0[l]],
+                                           [ell0[l]], [priors[l]],
+                                           [lc_priors[l]], p, backend)[0]
+                    for l, c in enumerate(cs)]
+
+        def batched():
+            return engine.lc_verify_batch(r, cs, R0, T0, ell0, priors,
+                                          lc_priors, p, backend)
+        want = solos()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = batched()
+        launches = {k.name: k.launches for k in kernels.KERNELS
+                    if k.launches}
+        for l, ((res, lc), (res1, lc1)) in enumerate(zip(got, want)):
+            if not (all(torch.equal(a, b) for a, b in zip(res, res1))
+                    and lc.keys() == lc1.keys()
+                    and all(torch.equal(lc[k], lc1[k]) for k in lc1)):
+                raise AssertionError(f"lc_verify_batch ({backend}, CAP "
+                                     f"{cap}): candidate {l} differs from "
+                                     f"its one-candidate call")
+        align = {"pallas": {"align_fused_lanes": 1}}.get(backend, {})
+        if launches != {"pair_stats_lanes": 8, **align}:
+            raise AssertionError(f"lc_verify_batch ({backend}, CAP {cap}, "
+                                 f"{len(cs)} candidates) launched "
+                                 f"{launches}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        t_b, t_s = _wall_ms(batched), _wall_ms(solos)
+        print(f"lc_verify_batch ({backend}) on {card}: the walk's largest "
+              f"round, {len(cs)} candidates at CAP {cap}: each equal to its "
+              f"one-candidate call bit for bit; launches {launches} in one "
+              f"call against {8 * len(cs)} pair_stats launches in "
+              f"{len(cs)} one-candidate calls; {t_b:.1f} ms against "
+              f"{t_s:.1f} ms", flush=True)
+    for k, n in total.items():
+        report[k]["launches"] += n
+    return total
 
 
 def async_backend(folder, report, card, sync):
@@ -2592,6 +2903,8 @@ def main(argv=None) -> int:
             seq = sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1)
             align_checks(seq, p, report)
             lane_checks(seq, p, report)
+            lanes_any_capacity(
+                sequence_clouds(folder, cam, CAPS[1], ALIGN_PAIRS + 1), p)
             skip_checks(clouds, seq, p, report)
         with phase("2m"):
             sharded_align(seq, p, report, card)
@@ -2671,6 +2984,11 @@ def main(argv=None) -> int:
                   f"verify per round "
                   f"{round(st['lc_stage_ms']['verify']['mean'], 1) if 'lc_stage_ms' in st else None}",
                   flush=True)
+        with phase("4v"):
+            # the walks' largest rounds as one call (pallas; pallas_mom
+            # verifies under xla)
+            lc_batch(s_fused[0]["lc_calls"], report, card)
+            lc_batch(s_mom[0]["lc_calls"], report, card)
         with phase("4c"):
             odometry(folder, gt, card)
         with phase("4d"):

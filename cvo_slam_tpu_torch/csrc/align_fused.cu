@@ -59,8 +59,11 @@
 // Lanes (vmap of the while loop): each lane keeps the solo plan
 // (cvo/kernels.plan_split), its own bitmask, flow, count and step
 // partials, and its state (R, T, ell, done, iters, nnz) in every block's
-// shared memory. A lane that has stopped is frozen: its items are skipped
-// and its state no longer changes, but every block still reaches each
+// shared memory, and reads its clouds at the lanes' strides (points, at
+// least the capacity: cvo/engine.stack_clouds rounds a stack's up to 16
+// points, so every lane is 16-byte aligned at any capacity). A lane that
+// has stopped is frozen: its items are skipped and its state no longer
+// changes, but every block still reaches each
 // grid.sync(); the loop ends when every lane has stopped or at max_iter,
 // and each lane reports its own iteration count. The items of the running
 // lanes are dealt to the blocks as one list, lane after lane, so a stopped
@@ -261,11 +264,12 @@ __device__ __forceinline__ Pose pose_of(const State& st) {
   return pose;
 }
 
-// the clouds of lane l: moving cloud l (M points a lane), fixed cloud l
-// (x_lane points a lane: N, or 0 for one fixed cloud of every lane)
+// the clouds of lane l at the lane strides (points): moving cloud l
+// (y_lane >= M), fixed cloud l (x_lane >= N, or 0 for one fixed cloud of
+// every lane)
 __device__ __forceinline__ Clouds lane_clouds(const Clouds& cl, int l,
-                                              int x_lane, int M) {
-  const size_t xo = (size_t)l * x_lane, yo = (size_t)l * M;
+                                              int x_lane, int y_lane) {
+  const size_t xo = (size_t)l * x_lane, yo = (size_t)l * y_lane;
   return Clouds{cl.x + 3 * xo, cl.fx + 5 * xo, cl.mx + xo,
                 cl.y + 3 * yo, cl.fy + 5 * yo, cl.my + yo};
 }
@@ -289,7 +293,7 @@ __device__ __forceinline__ void list_running(const State* st, int lanes,
 // so the one-lane align keeps its speed. Both run the same arithmetic.
 template <bool LANES>
 __global__ void __launch_bounds__(THREADS, 5)
-align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
+align_kernel(Clouds cl, int x_lane, int y_lane, Split sp, int lanes,
              const float* __restrict__ init, AlignParams prm,
              unsigned* __restrict__ bits, float* __restrict__ fpart,
              int* __restrict__ npart, float* __restrict__ spart,
@@ -336,8 +340,8 @@ align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
       if constexpr (LANES) {
         const int l = running[a / items];
         const int t = flow_item<true>(
-            lane_clouds(cl, l, x_lane, sp.M), sp, a % items, pose_of(st[l]),
-            st[l].ell, prm.k, prm.skip != 0, s, rows, red,
+            lane_clouds(cl, l, x_lane, y_lane), sp, a % items,
+            pose_of(st[l]), st[l].ell, prm.k, prm.skip != 0, s, rows, red,
             bits + l * lane_bits, fpart + l * N_FLOW * items,
             npart + l * items);
         if (tid == 0) tiles[l] += t;
@@ -358,7 +362,7 @@ align_kernel(Clouds cl, int x_lane, Split sp, int lanes,
     for (int a = blockIdx.x; a < work; a += gridDim.x) {
       if constexpr (LANES) {
         const int l = running[a / items];
-        step_item<true>(lane_clouds(cl, l, x_lane, sp.M), sp, a % items,
+        step_item<true>(lane_clouds(cl, l, x_lane, y_lane), sp, a % items,
                         pose_of(st[l]), st[l].ell, wv[l], wv[l] + 3, prm.k,
                         rows, red, bits + l * lane_bits,
                         spart + l * N_STEP * items);
@@ -434,9 +438,10 @@ extern "C" int align_fused_geometry(int* out) {
 
 // Plain C entry point (loaded with ctypes): one cooperative launch on
 // `stream` for `lanes` alignments (1 <= lanes <= MAX_LANES): moving cloud
-// l, y0/fy/my + l M points (each lane's arrays 16-byte aligned), against
-// fixed cloud l, x/fx/mx + l x_lane points (x_lane = N, or 0 when every
-// lane aligns against one fixed cloud), over the split of `chunks` chunks
+// l, y0/fy/my + l y_lane points (M of them, y_lane >= M; each lane's
+// arrays 16-byte aligned), against fixed cloud l, x/fx/mx + l x_lane
+// points (N of them, x_lane >= N, or 0 when every lane aligns against one
+// fixed cloud), over the split of `chunks` chunks
 // of per_chunk column tiles. init (13 floats a lane, on the device): R0
 // (row-major), T0, ell0. hf (host, 14 floats): log_ratio, d2ct, two_cl2,
 // s2cs2, sp_thres, c, d, eps, eps_2, min_step, max_step, the 3 anneal
@@ -454,16 +459,17 @@ extern "C" int align_fused_geometry(int* out) {
 extern "C" int align_fused_launch(
     const float* x, const float* fx, const unsigned char* mx,
     const float* y0, const float* fy, const unsigned char* my, int N, int M,
-    int lanes, int x_lane, int chunks, int per_chunk, const float* init,
+    int lanes, int x_lane, int y_lane, int chunks, int per_chunk,
+    const float* init,
     const float* hf, const int* hi, unsigned* bits, float* fpart,
     int* npart, float* spart, float* out_f, int* out_n, int* info,
     cudaStream_t stream) {
   Split sp;
   if (!make_split(N, M, chunks, per_chunk, sp) || lanes < 1
-      || lanes > MAX_LANES || (x_lane != 0 && x_lane != N))
+      || lanes > MAX_LANES || (x_lane != 0 && x_lane < N) || y_lane < M)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < lanes; ++l) {
-    const size_t o = (size_t)l * M;
+    const size_t o = (size_t)l * y_lane;
     if ((((uintptr_t)(y0 + 3 * o)) | ((uintptr_t)(fy + 5 * o))
          | ((uintptr_t)(my + o))) & 15)
       return (int)cudaErrorMisalignedAddress;
@@ -498,10 +504,11 @@ extern "C" int align_fused_launch(
   prm.max_iter = hi[3];
   prm.skip = hi[4];
   Clouds cl{x, fx, mx, y0, fy, my};
-  void* args[] = {(void*)&cl,    (void*)&x_lane, (void*)&sp,
-                  (void*)&lanes, (void*)&init,   (void*)&prm,
-                  (void*)&bits,  (void*)&fpart,  (void*)&npart,
-                  (void*)&spart, (void*)&out_f,  (void*)&out_n};
+  void* args[] = {(void*)&cl,     (void*)&x_lane, (void*)&y_lane,
+                  (void*)&sp,     (void*)&lanes,  (void*)&init,
+                  (void*)&prm,    (void*)&bits,   (void*)&fpart,
+                  (void*)&npart,  (void*)&spart,  (void*)&out_f,
+                  (void*)&out_n};
   const void* kernel = lanes == 1 ? (const void*)align_kernel<false>
                                   : (const void*)align_kernel<true>;
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(THREADS), args,

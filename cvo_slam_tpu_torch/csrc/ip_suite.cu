@@ -40,7 +40,17 @@
 // finds its set and lane from blockIdx.x. Each lane keeps the one-lane
 // plan and its own scratch, its two-level ticket finalize and its outputs,
 // each at a fixed stride, so each lane's 10-tuple equals its launch alone
-// bit for bit; the one-lane suite is the launch of S = 1.
+// bit for bit; the one-lane suite is the launch of S = 1. The clouds of
+// the lanes lie a lane stride apart (in points, at least the capacity:
+// cvo/engine.stack_clouds rounds it up to 16 points, so a stack of clouds
+// of any capacity has every lane 16-byte aligned).
+//
+// Tile skipping, as the Pallas suite's four sets of flags
+// (pallas_kernels.py:782-787): each of the four sets skips the tile pairs
+// whose boxes lie beyond the gate radius (pair_stats.cuh), the post set's
+// rows the moving cloud under the registration result as given (yt); its
+// Hessian moments come from the same sweep, so they share its tiles. Each
+// set of each lane counts the tile pairs it computed.
 //
 // -fmad=false, integer counts, no float atomics, f32 sums in one fixed
 // order: two launches give bitwise-equal results. Any capacity works: rows
@@ -57,13 +67,20 @@ constexpr int PLAN_INTS = 7;   // plan ints of one set
 // LANES: the launch of several lanes; one lane takes the sweep without
 // the lane offsets, so the one-lane suite keeps its registers and speed.
 // At most 102 registers, so 5 blocks fit on an SM either way (the lane
-// offsets took ptxas to 128 registers and 4 blocks).
+// offsets took ptxas to 128 registers and 4 blocks), with tile skipping
+// too: kernels.plan_sets sizes the split from this residency, so it keeps
+// every sum's order.
 template <bool LANES>
 __global__ void __launch_bounds__(THREADS, 5)
 suite_sweep(const __grid_constant__ Sweep w) {
   __shared__ SweepShared<true> sh;
   sweep_sets<2, LANES>(w, sh);
 }
+
+// a lane's out_n: the four counts, the four sets' tile pairs, the
+// level-2 ticket, the level-1 tickets
+constexpr int OUT_TILES = N_SETS, OUT_LEVEL2 = 2 * N_SETS,
+              OUT_LEVEL1 = 2 * N_SETS + 1;
 
 // whether the set's partials and tickets lie inside the scratch of
 // `sizes` (fpart, npart, gpart, gnpart, out_n)
@@ -72,7 +89,7 @@ bool fits(const PairSet& t, const int* sizes) {
   return t.f0 >= 0 && t.n0 >= 0 && t.gf0 >= 0 && t.group0 >= 0 &&
          t.f0 + items * nf <= sizes[0] && t.n0 + items <= sizes[1] &&
          t.gf0 + groups * nf <= sizes[2] && t.group0 + groups <= sizes[3] &&
-         N_SETS + 1 + t.group0 + groups <= sizes[4];
+         OUT_LEVEL1 + t.group0 + groups <= sizes[4];
 }
 
 }  // namespace
@@ -86,10 +103,12 @@ extern "C" int suite_geometry(int* out) {
 
 // Plain C entry point (loaded with ctypes). `lanes` suites in one launch
 // (lanes >= 1): lane l's fixed cloud x/fx/mx + l x_lane points (N of them;
-// x_lane N, or 0 for one fixed cloud of every lane), its moving cloud
-// y/fy/my + l M points, each lane's arrays 16-byte aligned (both are
-// staged as columns), yt + 3 l M its moving positions under the
-// registration result and ell + l its ell. plan (28 ints), the same for
+// x_lane >= N, or 0 for one fixed cloud of every lane), its moving cloud
+// y/fy/my + l y_lane points (M of them, y_lane >= M), each lane's arrays
+// 16-byte aligned (both are staged as columns), yt + 3 l y_lane its moving
+// positions under the registration result and ell + l its ell. skip: 1
+// tile skipping, 0 every tile pair (the outputs are the same bit for
+// bit). plan (28 ints), the same for
 // every lane: for pre, post, fixed and moving in turn the split's chunks,
 // column tiles per chunk and items per level-1 group, then the set's
 // first float of fpart, count of npart, float of gpart and group of
@@ -97,17 +116,17 @@ extern "C" int suite_geometry(int* out) {
 // post, else 1. sizes (5 ints): one lane's lengths of fpart, npart, gpart,
 // gnpart and out_n; each buffer holds `lanes` of them, lane after lane.
 // out_f (173 floats a lane): G at 0:169, the four sums at 169:173; out_n:
-// a lane's four counts, its level-2 ticket, then its level-1 tickets; this
-// function zeroes it on `stream` before the launch. Returns the CUDA error
-// code (0 = success).
+// a lane's four counts, the four sets' tile pairs computed, its level-2
+// ticket, then its level-1 tickets; this function zeroes it on `stream`
+// before the launch. Returns the CUDA error code (0 = success).
 extern "C" int ip_suite_launch(
     const float* x, const float* fx, const unsigned char* mx, const float* y,
     const float* fy, const unsigned char* my, const float* yt,
-    const float* ell, int N, int M, int lanes, int x_lane, const int* plan,
-    const int* sizes,
-    float log_ratio, float d2ct, float s2, float cs2, float two_cl2,
-    float* fpart, int* npart, float* gpart, int* gnpart, float* out_f,
-    int* out_n, cudaStream_t stream) {
+    const float* ell, int N, int M, int lanes, int x_lane, int y_lane,
+    int skip, const int* plan, const int* sizes, float log_ratio,
+    float d2ct, float s2, float cs2, float two_cl2, float* fpart,
+    int* npart, float* gpart, int* gnpart, float* out_f, int* out_n,
+    cudaStream_t stream) {
   // rows and columns of each set
   const float* ra[N_SETS] = {y, yt, x, y};
   const float* rf[N_SETS] = {fy, fy, fx, fy};
@@ -116,18 +135,11 @@ extern "C" int ip_suite_launch(
   const float* cf[N_SETS] = {fx, fx, fx, fy};
   const unsigned char* cm[N_SETS] = {mx, mx, mx, my};
   const int rows[N_SETS] = {M, M, N, M}, cols[N_SETS] = {N, N, N, M};
-  // points a lane of each set's rows and columns
-  const int row_lane[N_SETS] = {M, M, x_lane, M};
-  const int col_lane[N_SETS] = {x_lane, x_lane, x_lane, M};
-  if (lanes < 1 || (x_lane != 0 && x_lane != N))
+  // the lane strides (points) of each set's rows and columns
+  const int row_lane[N_SETS] = {y_lane, y_lane, x_lane, y_lane};
+  const int col_lane[N_SETS] = {x_lane, x_lane, x_lane, y_lane};
+  if (lanes < 1 || (x_lane != 0 && x_lane < N) || y_lane < M)
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < lanes; ++l) {
-    const size_t xo = (size_t)l * x_lane, yo = (size_t)l * M;
-    if ((((uintptr_t)(x + 3 * xo)) | ((uintptr_t)(fx + 5 * xo))
-         | ((uintptr_t)(mx + xo)) | ((uintptr_t)(y + 3 * yo))
-         | ((uintptr_t)(fy + 5 * yo)) | ((uintptr_t)(my + yo))) & 15)
-      return (int)cudaErrorMisalignedAddress;
-  }
   PairSet sets[N_SETS];
   for (int s = 0; s < N_SETS; ++s) {
     const int* q = plan + PLAN_INTS * s;
@@ -138,9 +150,12 @@ extern "C" int ip_suite_launch(
     if (!fits(sets[s], sizes)) return (int)cudaErrorInvalidValue;
     sets[s].row_lane = row_lane[s];
     sets[s].col_lane = col_lane[s];
+    if (!lanes_aligned(sets[s], lanes))
+      return (int)cudaErrorMisalignedAddress;
     sets[s].out_g = out_f;
     sets[s].out_sum = out_f + NG + s;
     sets[s].out_n = out_n + s;
+    sets[s].out_tiles = out_n + OUT_TILES + s;
   }
   Sweep w;
   // the post set first: its items are the longest
@@ -154,8 +169,8 @@ extern "C" int ip_suite_launch(
   w.lane_gnpart = sizes[3];
   w.lane_out_f = NG + N_SETS;
   w.lane_out_n = sizes[4];
-  w.level2 = out_n + N_SETS;
-  w.level1 = out_n + N_SETS + 1;
+  w.level2 = out_n + OUT_LEVEL2;
+  w.level1 = out_n + OUT_LEVEL1;
   w.fpart = fpart;
   w.npart = npart;
   w.gpart = gpart;
@@ -167,6 +182,7 @@ extern "C" int ip_suite_launch(
   w.c.s2 = s2;
   w.c.cs2 = cs2;
   w.c.two_cl2 = two_cl2;
+  w.skip = skip;
   const cudaError_t err =
       cudaMemsetAsync(out_n, 0, (size_t)lanes * sizes[4] * sizeof(int),
                       stream);

@@ -11,15 +11,20 @@
 // A launch's blocks are the work items of its sets, set after set in the
 // order of Sweep::set; a block finds its set from blockIdx.x against the
 // sets' first blocks (a branch uniform per block). A launch of S lanes
-// (the suite's lanes, sweep_sets<MOM, true>) repeats its sets for every
-// lane: set after set, and within a set lane after lane, each lane's
-// clouds, partials, tickets and outputs at a fixed stride (Sweep::lane_*,
-// PairSet::row_lane / col_lane), each lane's sums in the one-lane order,
-// so every lane equals its launch alone bit for bit. Per item
-// (stats_item):
+// (the suite's lanes and pair stats' lanes, sweep_sets<MOM, true>) repeats
+// its sets for every lane: set after set, and within a set lane after
+// lane, each lane's partials, tickets and outputs at a fixed stride
+// (Sweep::lane_*), each lane's clouds at its operand's lane stride in
+// points (PairSet::row_lane / col_lane: any stride of at least the point
+// count, so a lane of any capacity starts 16-byte aligned), each lane's
+// sums in the one-lane order, so every lane equals its launch alone bit
+// for bit. Per item (stats_item):
 //   * a tile of ROWS rows (RB per thread: -2 xa and |xa|^2 in registers,
 //     colours in shared memory) against a chunk of 32-column tiles of xb,
-//     staged with flow_step.cuh's double-buffered cp.async sweep;
+//     staged with flow_step.cuh's double-buffered cp.async sweep; with
+//     skipping (Sweep::skip) a column tile whose box lies beyond the gate
+//     radius from the row tile's box is not computed (flow_step.cuh's
+//     box_live, below);
 //   * per row the f32 sum, the integer count and, with moments, the 13
 //     sums (W U(xb))_r in shared memory (each thread touches only its own
 //     rows);
@@ -36,6 +41,19 @@
 // to finish sums every set's groups, in order, into the set's outputs. A
 // thread loads 32 partials at once before it adds them in order, so
 // neither level waits on one load after another.
+//
+// Tile skipping (the Pallas kernels' _skip_flags: pallas_kernels.py:394
+// for pair stats, :782-787 for the suite's four sets). stats_item takes
+// the box of its rows as it loads them (rows_box) and the sweep the box of
+// each column tile as warp 0 packs it; thread 0 decides box_live against
+// d2t = -2 ell^2 log_ratio, the cut of the geometric gate. The gate that
+// pair stats tests is the per-pair geo_z < cut of the per-pair kernels,
+// with the same rounding, so flow_step.cuh's slack argument holds as it
+// stands: a skipped tile pair holds no pair that passes the gate, and adds
+// nothing to any row's sum, count, W U(xb) or active bit; every output,
+// G included, is that of the unskipped launch bit for bit (skip = 0 keeps
+// it reachable). Each block adds the tile pairs it computed to its set's
+// count of its lane (an integer atomic; the count is order-free).
 //
 // Per pair: the geometric gate first (geo_z against geo_cut: an FMA-chain
 // dot through -2 xa and the identity, as ident_d2_reg rounds it); inside the
@@ -130,8 +148,8 @@ struct SweepShared {
 struct PairSet {
   Clouds cl;       // rows x/fx/mx (sp.N), columns y/fy/my (sp.M)
   Split sp;
-  int row_lane;    // points a lane of the rows and of the columns (lanes
-  int col_lane;    // only; 0: one cloud of every lane)
+  int row_lane;    // lane strides, in points, of the rows and of the
+  int col_lane;    // columns (lanes only; 0: one cloud of every lane)
   int mom;         // with moments: NG + 1 floats per partial, else 1
   int item0;       // the set's first block in the launch
   int group;       // items per level-1 group
@@ -141,6 +159,7 @@ struct PairSet {
   float* out_g;    // G (NG floats), with moments
   float* out_sum;  // the sum
   int* out_n;      // the count
+  int* out_tiles;  // the tile pairs computed (zeroed before the launch)
 };
 
 // floats per partial of a set, and its level-1 groups
@@ -168,6 +187,7 @@ struct Sweep {
   int* gnpart;
   const float* ell;   // one a lane
   Consts c;
+  int skip;        // 1: tile skipping; 0: every tile pair
 };
 
 // Partials q = tid, tid + THREADS, ... < NF of src (NF floats per item)
@@ -216,21 +236,25 @@ __device__ void sum_partials(bool mom, const float* src, const int* src_n,
     sum_in_order<1>(src, src_n, b0, b1, red, dst_g, dst_sum, dst_n);
 }
 
-// One work item of a set: the sweep, then the item's partials, the sum at
-// fpart[NF - 1] (G at fpart[0:NG] with moments) and the count at *npart.
-// Every thread of the block calls it. ms: the block's moments (MOM only).
+// One work item of a set: the sweep (skipping the tile pairs that are not
+// live when `skip`), then the item's partials, the sum at fpart[NF - 1] (G
+// at fpart[0:NG] with moments) and the count at *npart. Returns the tile
+// pairs it computed. Every thread of the block calls it. ms: the block's
+// moments (MOM only).
 template <bool MOM>
-__device__ void stats_item(const Clouds& cl, const Split& sp, int item,
-                           float ell, const Consts& c, Stage& s,
-                           RowShared& rs, Moments* ms, Red& red,
-                           float* __restrict__ fpart,
-                           int* __restrict__ npart) {
+__device__ int stats_item(const Clouds& cl, const Split& sp, int item,
+                          float ell, const Consts& c, bool skip, Stage& s,
+                          RowShared& rs, Moments* ms, Red& red,
+                          float* __restrict__ fpart,
+                          int* __restrict__ npart) {
   constexpr int NF = MOM ? NG + 1 : 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Item it = item_of(sp, item);
   Rows R;
   load_rows(cl, sp, it.rt, R, rs.colours);
-  const float cut = geo_cut(-2.f * ell * ell * c.log_ratio);
+  if (skip) rows_box(R, s);
+  const float d2t = -2.f * ell * ell * c.log_ratio;
+  const float cut = geo_cut(d2t);
   const float den = 2.f * ell * ell;
   float sr[RB] = {};
   int nr[RB] = {};
@@ -241,9 +265,10 @@ __device__ void stats_item(const Clouds& cl, const Split& sp, int item,
         ms->wu[b * ROW_STRIDE + r * THREADS + tid] = 0.f;
   }
   const Pose none{};
-  // every tile pair (the sweep's tile skipping is not taken here)
-  sweep<false>(cl, sp, it, none, s, false, 0.f,
-               [&](int, const PackedTile& pk, bool) {
+  // the row box is read at the first tile, before the stage holds G
+  const int tiles = sweep<false>(cl, sp, it, none, s, skip, d2t,
+                                 [&](int, const PackedTile& pk, bool live) {
+    if (!live) return;
 #pragma unroll 2
     for (int k = 0; k < CT; ++k) {
       const float4 p = pk.p[k];
@@ -350,9 +375,10 @@ __device__ void stats_item(const Clouds& cl, const Split& sp, int item,
     __stcg(fpart + NF - 1, red.out[0]);
     __stcg(npart, red.iout);
   }
+  return tiles;
 }
 
-// the clouds of a set in lane l
+// the clouds of a set in lane l (each operand's lane stride in points)
 __device__ __forceinline__ Clouds set_clouds(const PairSet& t, int l) {
   const size_t ro = (size_t)l * t.row_lane, co = (size_t)l * t.col_lane;
   return Clouds{t.cl.x + 3 * ro, t.cl.fx + 5 * ro, t.cl.mx + ro,
@@ -389,21 +415,25 @@ __device__ void sweep_sets(const Sweep& w, SweepShared<MOM != 0>& sh) {
   const Clouds& cl = LANES ? lane_cl : set.cl;
   float* fp = w.fpart + lf + set.f0 + (size_t)item * nf;
   int* np = w.npart + ln + set.n0 + item;
+  const bool skip = w.skip != 0;
+  int tiles;
   if constexpr (MOM == 0) {
-    stats_item<false>(cl, set.sp, item, ell, w.c, sh.s, sh.rs, nullptr,
-                      sh.red, fp, np);
+    tiles = stats_item<false>(cl, set.sp, item, ell, w.c, skip, sh.s, sh.rs,
+                              nullptr, sh.red, fp, np);
   } else if (mom) {
-    stats_item<true>(cl, set.sp, item, ell, w.c, sh.s, sh.rs, &sh.ms,
-                     sh.red, fp, np);
+    tiles = stats_item<true>(cl, set.sp, item, ell, w.c, skip, sh.s, sh.rs,
+                             &sh.ms, sh.red, fp, np);
   } else {
-    stats_item<false>(cl, set.sp, item, ell, w.c, sh.s, sh.rs, nullptr,
-                      sh.red, fp, np);
+    tiles = stats_item<false>(cl, set.sp, item, ell, w.c, skip, sh.s, sh.rs,
+                              nullptr, sh.red, fp, np);
   }
+  const size_t lo = (size_t)l * w.lane_out_n;
+  if (threadIdx.x == 0 && tiles != 0)
+    atomicAdd(set.out_tiles + lo, tiles);   // an integer count
 
   __threadfence();   // every thread's partials, before the tickets
 
   // level 1: the last block of the item's group sums the group
-  const size_t lo = (size_t)l * w.lane_out_n;
   float* lane_gpart = w.gpart + (size_t)l * w.lane_gpart;
   int* lane_gnpart = w.gnpart + (size_t)l * w.lane_gnpart;
   const int g = item / set.group;
@@ -473,6 +503,18 @@ int sweep_geometry(Kernel kernel, int* out) {
   out[2] = ROWS;
   out[3] = CT;
   return (int)cudaSuccess;
+}
+
+// host side: whether every lane's columns of a set start 16-byte aligned
+// (the columns are staged with 16-byte copies)
+inline bool lanes_aligned(const PairSet& t, int lanes) {
+  for (int l = 0; l < lanes; ++l) {
+    const size_t co = (size_t)l * t.col_lane;
+    if ((((uintptr_t)(t.cl.y + 3 * co)) | ((uintptr_t)(t.cl.fy + 5 * co))
+         | ((uintptr_t)(t.cl.my + co))) & 15)
+      return false;
+  }
+  return true;
 }
 
 // host side: the launch of `nsets` sets in the given order (item0 and the

@@ -23,10 +23,12 @@
         verification (parallel.batch._batch_backend).
   * `compute_innerproduct` runs the suite kernel (cvo.kernels.ip_suite);
     `compute_innerproduct_lc` (cvo.cpp:505-561) runs the pair-stats kernel
-    (cvo.kernels.pair_stats) 6 + 2 times, and `lc_verify_batch` re-registers
-    the loop-closure candidates of a round (under 'pallas' as the lanes of
-    one align_fused launch, under 'xla' as one lane program) and scores
-    each.
+    (cvo.kernels.pair_stats) 6 + 2 times, `compute_innerproduct_lc_lanes`
+    the same 6 + 2 calls over S candidates, each one pair-stats lanes
+    launch (cvo.kernels.pair_stats_lanes), and `lc_verify_batch`
+    re-registers the loop-closure candidates of a round (under 'pallas' as
+    the lanes of one align_fused launch, under 'xla' as one lane program)
+    and scores them, two or more as lanes (the JAX package's vmap).
   * the lanes (the JAX package's vmapped align, multi_sequence.py:44-73):
     `align_lanes`, `compute_innerproduct_lanes`,
     `align_and_innerproduct_lanes` and `frame_step_lanes` run S requests of
@@ -384,8 +386,10 @@ def frame_step(prev: PointCloud, kf: PointCloud, cur: PointCloud,
 
 def stack_clouds(clouds) -> PointCloud:
     """S clouds of one capacity as one PointCloud with a leading lane
-    axis, (S, CAP, .) each."""
-    return PointCloud(*(torch.stack(list(t)) for t in zip(*clouds)))
+    axis, (S, CAP, .) each, laid for the lane kernels at any capacity
+    (kernels.stack_lanes: each lane's points contiguous, the lanes CAP
+    rounded up to 16 points apart, so every lane is 16-byte aligned)."""
+    return PointCloud(*(kernels.stack_lanes(t) for t in zip(*clouds)))
 
 
 def unstack_clouds(stacked: PointCloud):
@@ -468,8 +472,9 @@ def compute_innerproduct_lanes(fixed, moving, tran, ell, p: CvoParams,
     dev = mv.device
     trans = [_f32(tran[l], dev) for l in range(lanes)]
     ells = [_f32(ell[l], dev).reshape(()) for l in range(lanes)]
-    yt = torch.stack([se3.transform_points(trans[l], moving[l].positions)
-                      .contiguous() for l in range(lanes)])
+    yt = kernels.stack_lanes(
+        se3.transform_points(trans[l], moving[l].positions).contiguous()
+        for l in range(lanes))
     (pre_v, pre_n, post_v, post_n, fixed_v, _, moving_v, _, G,
      inliers) = kernels.ip_suite_lanes(
         fx.positions, fx.features, fx.mask, mv.positions, mv.features,
@@ -559,6 +564,53 @@ def compute_innerproduct_lc(fixed: PointCloud, moving: PointCloud,
                 inliers_svd=inliers_svd, inliers_pnpransac=inliers_pnp)
 
 
+def compute_innerproduct_lc_lanes(fixed: PointCloud, movings, prior_tran,
+                                  lc_prior_tran, lc_prior_tran_2, lc_tran,
+                                  ell, p: CvoParams, moving_stacked=None):
+    """compute_innerproduct_lc over S candidates against one fixed cloud
+    (the JAX package's vmap of it in lc_verify_batch): movings a list of S
+    clouds, each transform and ell one entry per candidate. Each of the
+    six pair-stats calls without moments and the two with them is one
+    pair-stats lanes launch over the candidates (the fixed self set too:
+    its clouds are shared, its ell is each candidate's). Returns
+    compute_innerproduct_lc's dict, each entry with a leading lane axis;
+    each lane equals compute_innerproduct_lc on its inputs bit for bit.
+    moving_stacked: the candidates already stacked (stack_clouds)."""
+    dev = fixed.device
+    lanes = len(movings)
+    x, fx, mx = fixed.positions, fixed.features, fixed.mask
+    mv = stack_clouds(movings) if moving_stacked is None else moving_stacked
+    y, fy, my = mv.positions, mv.features, mv.mask
+    ells = torch.stack([_f32(ell[l], dev).reshape(()) for l in range(lanes)])
+
+    def moved(tran):
+        return kernels.stack_lanes(
+            se3.transform_points(_f32(tran[l], dev), movings[l].positions)
+            .contiguous() for l in range(lanes))
+
+    def ip(a, fa, ma, b, fb, mb, with_moments=False):
+        return kernels.pair_stats_lanes(a, fa, ma, b, fb, mb, ells, p,
+                                        with_moments)
+
+    y_lc = moved(lc_tran)
+    prior_v = ip(moved(prior_tran), fy, my, x, fx, mx)[0]
+    lcp_v = ip(moved(lc_prior_tran), fy, my, x, fx, mx)[0]
+    pre_v = ip(y, fy, my, x, fx, mx)[0]
+    post_v = ip(y_lc, fy, my, x, fx, mx)[0]
+    fixed_v = ip(x, fx, mx, x, fx, mx)[0]
+    moving_v = ip(y, fy, my, y, fy, my)[0]
+    _, _, G, inliers_svd = ip(y_lc, fy, my, x, fx, mx, True)
+    inliers_pnp = ip(moved(lc_prior_tran_2), fy, my, x, fx, mx, True)[3]
+    H_raw = torch.stack([pairwise.assemble_hessian(G[l], ells[l])
+                         for l in range(lanes)])
+    cos_angle = post_v / (torch.sqrt(fixed_v) * torch.sqrt(moving_v))
+    post_hessian = hessian_postprocess_lanes(H_raw, inliers_svd, p)
+    return dict(inn_prior=prior_v, inn_lc_prior=lcp_v, inn_lc_pre=pre_v,
+                inn_lc_post=post_v, inn_fixed=fixed_v, inn_moving=moving_v,
+                cos_angle=cos_angle, post_hessian=post_hessian,
+                inliers_svd=inliers_svd, inliers_pnpransac=inliers_pnp)
+
+
 def lc_verify_batch(fixed: PointCloud, movings, R0, T0, ell0, priors,
                     lc_priors, p: CvoParams, backend: str = "pallas_mom"):
     """Every loop-closure candidate verification of one detection round
@@ -568,25 +620,34 @@ def lc_verify_batch(fixed: PointCloud, movings, R0, T0, ell0, priors,
     align_fused launch, under 'xla' of one lane program, with the reference
     as every lane's fixed cloud (the JAX package's vmap, converged lanes
     frozen, so each lane equals its solo run); a single candidate, and the
-    other backends, align one candidate after the other. Then compute_innerproduct_lc per candidate.
-    The pnpransac prior is the identity (never assigned in the reference's
-    active code).
+    other backends, align one candidate after the other. Then
+    compute_innerproduct_lc: two or more candidates as the lanes of
+    compute_innerproduct_lc_lanes on every backend (8 pair-stats launches
+    a call), a single one alone (8 a candidate). The pnpransac prior is the
+    identity (never assigned in the reference's active code).
 
     movings: a sequence of PointCloud; R0/T0/ell0/priors/lc_priors: one
     entry per candidate. Returns [(AlignResult, lc dict)] in order."""
     eye4 = np.eye(4, dtype=np.float32)
-    if backend in ("pallas", "xla") and len(movings) > 1:
-        lanes = align_lanes(fixed, movings, R0, T0, ell0, p, backend)
-        results = [AlignResult(*(t[l] for t in lanes))
-                   for l in range(len(movings))]
+    n = len(movings)
+    if n == 1:
+        res = align(fixed, movings[0], R0[0], T0[0], ell0[0], p, backend)
+        return [(res, compute_innerproduct_lc(
+            fixed, movings[0], priors[0], lc_priors[0], eye4, res.transform,
+            res.ell, p))]
+    mv = stack_clouds(movings)
+    if backend in ("pallas", "xla"):
+        lanes = align_lanes(fixed, movings, R0, T0, ell0, p, backend, mv)
+        results = [AlignResult(*(t[l] for t in lanes)) for l in range(n)]
     else:
         results = [align(fixed, moving, R0_i, T0_i, ell0_i, p, backend)
                    for moving, R0_i, T0_i, ell0_i in zip(movings, R0, T0,
                                                          ell0)]
-    return [(res, compute_innerproduct_lc(fixed, moving, prior, lc_prior,
-                                          eye4, res.transform, res.ell, p))
-            for res, moving, prior, lc_prior in zip(results, movings, priors,
-                                                    lc_priors)]
+    lcs = compute_innerproduct_lc_lanes(
+        fixed, movings, priors, lc_priors, [eye4] * n,
+        [r.transform for r in results], [r.ell for r in results], p, mv)
+    return [(res, {k: v[l] for k, v in lcs.items()})
+            for l, res in enumerate(results)]
 
 
 def to_host(tree):

@@ -18,6 +18,10 @@ version.
     pair with its pair count and, on request, the Hessian moments G
     (function_inner_product and se3_Hessian, cvo.cpp:388-459, :620-759),
     in one launch; compute_innerproduct_lc launches it 6 + 2 times.
+    `pair_stats_lanes`: the pair stats of S cloud pairs in one launch
+    (compute_innerproduct_lc over the loop-closure candidates of a round,
+    engine.compute_innerproduct_lc_lanes), each lane equal to its one-lane
+    launch bit for bit (the one-lane call is its S = 1 launch).
   * `flow_and_step` (csrc/flow_step.cu): one align iteration in per-pair
     form, (omega, v, nnz) from the flow pass, then (B, C, D, E) from the
     step pass with the fresh omega, v (the pallas_iter backend). Its two
@@ -39,13 +43,20 @@ grid, which the kernel's library reports (`*_geometry`), and `plan_sets`
 sizes the suite's four pair sets together, as one grid.
 The pass 1 of the align kernels and of the moment kernel records the kept
 pairs in a bitmask (`pack_keep_bits` is its layout) that pass 2 walks.
-Their gate sweeps skip the (row tile, column tile) pairs whose boxes lie
-beyond the gate radius, as the Pallas kernels skip: every output is that of
-the sweep that computes every pair, bit for bit, and each launch counts the
-tile pairs it computed (`launch_info`'s `tiles`, a device tensor, against
-`tile_pairs` a sweep). `tile_flags_plain` is the test in torch; the
-wrappers' `tile_skip=False` computes every pair (for the checks that hold
-the two sweeps equal).
+The gate sweeps of all seven functions skip the (row tile, column tile)
+pairs whose boxes lie beyond the gate radius, as the Pallas kernels skip:
+every output is that of the sweep that computes every pair, bit for bit,
+and each launch counts the tile pairs it computed (`launch_info`'s
+`tiles`, a device tensor, against `tile_pairs` a sweep; the suite's per
+set). `tile_flags_plain` is the test in torch; the wrappers' `tile_skip=
+False` computes every pair (for the checks that hold the two sweeps
+equal).
+
+A lane launch takes a stack of clouds (S, CAP, .) whose lanes lie a fixed
+stride apart, each lane's points contiguous: `stack_lanes` (and
+engine.stack_clouds) lays them so, the stride CAP rounded up to LANE_POINTS
+points, so every lane of a stack of any capacity starts 16-byte aligned,
+as the kernels' 16-byte staging copies need.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel (building it on first use) or raises. Each
@@ -108,9 +119,15 @@ ALIGN_LANES = KernelInfo("align_fused_lanes", "align_fused.cu",
                          "cvo_slam_tpu/cvo/pallas_align.py:477")
 IP_SUITE_LANES = KernelInfo("ip_suite_lanes", "ip_suite.cu",
                             "cvo_slam_tpu/cvo/pallas_kernels.py:802")
+PAIR_STATS_LANES = KernelInfo("pair_stats_lanes", "pair_stats.cu",
+                              "cvo_slam_tpu/cvo/pallas_kernels.py:418")
 KERNELS = (MOMENT, IP_SUITE, PAIR_STATS, FLOW_AND_STEP, FLOW, STEP, ALIGN,
-           ALIGN_LANES, IP_SUITE_LANES)
+           ALIGN_LANES, IP_SUITE_LANES, PAIR_STATS_LANES)
 MAX_LANES = 32   # lanes of one align_fused launch (csrc/align_fused.cu)
+# a stack's lane stride is its capacity rounded up to this many points, so
+# that every lane's positions (12 B a point), features (20 B) and mask
+# (1 B) start 16-byte aligned
+LANE_POINTS = 16
 
 
 def reset_launch_counts():
@@ -122,7 +139,7 @@ def _as_ell(ell, device):
     return torch.as_tensor(ell, dtype=torch.float32, device=device).reshape(())
 
 
-def _check(name, t, dtype, shape, device):
+def _check_meta(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -130,6 +147,10 @@ def _check(name, t, dtype, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def _check(name, t, dtype, shape, device):
+    _check_meta(name, t, dtype, shape, device)
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
 
@@ -155,13 +176,14 @@ def _raise_on(err, name):
 
 def _check_staged(prefix, pos, feat, mask):
     """The kernels stage their column cloud with 16-byte copies; for a
-    stack of clouds, every lane's."""
+    stack of clouds, every lane's (stack_lanes lays a stack so)."""
     for name, t in (("positions", pos), ("features", feat), ("mask", mask)):
         stacked = t.dim() > (1 if name == "mask" else 2) and t.shape[0] > 1
         lane = t.stride(0) * t.element_size() if stacked else 0
         if t.data_ptr() % 16 or lane % 16:
             raise ValueError(f"{prefix} {name} is not 16-byte aligned"
-                             + (" in every lane" if lane % 16 else ""))
+                             + (" in every lane (stack the clouds with "
+                                "engine.stack_clouds)" if lane % 16 else ""))
 
 
 def _check_lanes(lanes):
@@ -170,17 +192,55 @@ def _check_lanes(lanes):
         raise ValueError(f"{lanes} lanes: one launch takes 1 to {MAX_LANES}")
 
 
+def _lane_layout(t, stride: int) -> bool:
+    """Whether the stack t (S, n, ...) has each lane's points contiguous
+    and its lanes `stride` points apart (a dimension of size 1 takes any
+    stride)."""
+    inner = math.prod(t.shape[2:])
+    want = (stride * inner,) + tuple(
+        math.prod(t.shape[d + 1:]) for d in range(1, t.dim()))
+    return all(size == 1 or got == w
+               for size, got, w in zip(t.shape, t.stride(), want))
+
+
+def _at_lane_stride(t, stride: int):
+    """The stack t (S, n, ...) with its lanes `stride` points apart: t
+    itself when it is laid out so, else a padded copy."""
+    if _lane_layout(t, stride):
+        return t
+    out = t.new_zeros((t.shape[0], stride) + tuple(t.shape[2:]))
+    out[:, :t.shape[1]] = t
+    return out[:, :t.shape[1]]
+
+
+def stack_lanes(tensors):
+    """S tensors (CAP, ...) of one shape as one (S, CAP, ...) tensor whose
+    lanes lie CAP rounded up to LANE_POINTS points apart, each lane's
+    points contiguous (a view of a zero-padded stack; torch.stack's own
+    layout where CAP is a multiple of LANE_POINTS)."""
+    t = torch.stack(list(tensors))
+    return _at_lane_stride(t, -(-t.shape[1] // LANE_POINTS) * LANE_POINTS)
+
+
 def _check_lane_cloud(prefix, pos, feat, mask, lanes, n, device):
-    """A stack of `lanes` clouds of n points (S, n, .), or one cloud of
-    every lane (n, .); returns the points a lane (n, or 0 for the one
-    cloud)."""
+    """A stack of `lanes` clouds of n points (S, n, .), each lane's
+    points contiguous and the lanes one stride of at least n points apart
+    in all three arrays (stack_lanes), or one cloud of every lane (n, .);
+    returns the lane stride in points (0 for the one cloud)."""
     if pos.dim() == 2:
         _check_cloud(prefix, pos, feat, mask, n, device)
         return 0
-    _check(prefix + " positions", pos, torch.float32, (lanes, n, 3), device)
-    _check(prefix + " features", feat, torch.float32, (lanes, n, 5), device)
-    _check(prefix + " mask", mask, torch.bool, (lanes, n), device)
-    return n
+    stride = mask.stride(0) if lanes > 1 else n
+    for name, t, dtype, shape in (
+            (" positions", pos, torch.float32, (lanes, n, 3)),
+            (" features", feat, torch.float32, (lanes, n, 5)),
+            (" mask", mask, torch.bool, (lanes, n))):
+        _check_meta(prefix + name, t, dtype, shape, device)
+        if stride < n or not _lane_layout(t, stride):
+            raise ValueError(f"{prefix}{name}: not a stack of contiguous "
+                             f"lanes {stride} points apart (stack the "
+                             f"clouds with engine.stack_clouds)")
+    return stride
 
 
 _fns: Dict[Tuple[str, str], object] = {}
@@ -594,7 +654,8 @@ def suite_scratch(plans):
     set's partials lie after the other's: f32 item partials (NG + 1 floats
     for post, else 1), i32 item counts, f32 and i32 level-1 group partials;
     then the outputs (G, then the four sums) and out_n, the four counts,
-    the level-2 ticket and one level-1 ticket per group. offsets[s]: the
+    the four sets' tile pairs computed, the level-2 ticket and one level-1
+    ticket per group. offsets[s]: the
     set's first float of fpart, count of npart, float of gpart and group of
     gnpart (and of the level-1 tickets)."""
     ends = [0, 0, 0, 0]
@@ -607,22 +668,26 @@ def suite_scratch(plans):
                                              groups * nf, groups))]
     shapes = dict(zip(("fpart", "npart", "gpart", "gnpart"),
                       ((e,) for e in ends)))
-    shapes.update(out_f=(NG + 4,), out_n=(4 + 1 + ends[3],))
+    shapes.update(out_f=(NG + 4,), out_n=(4 + 4 + 1 + ends[3],))
     return shapes, tuple(offsets)
 
 
 def _suite_launch(x, fx, mx, y, fy, my, yt, ell, p: CvoParams, lanes,
-                  launch_info=None):
+                  launch_info=None, tile_skip=True):
     """One launch of csrc/ip_suite.cu for `lanes` lanes: x/fx/mx a stack of
     `lanes` fixed clouds or one fixed cloud of every lane, y/fy/my and yt
-    stacks of `lanes`, ell (lanes,). Returns (out_f (lanes, 173), out_n
-    (lanes, ...)). A launch_info dict receives the grid, blocks per SM,
-    SMs and each set's split."""
+    stacks of `lanes` (yt is laid at y's lane stride), ell (lanes,).
+    Returns (out_f (lanes, 173), out_n (lanes, ...)). A launch_info dict
+    receives the grid, blocks per SM, SMs, each set's split, the tile pairs
+    each set computed (`tiles`, a device tensor (lanes, 4) in SUITE_SETS
+    order) and each set's tile pairs (`tile_pairs`). tile_skip=False
+    computes every tile pair (the same outputs bit for bit)."""
     dev = y.device
     n, m = x.shape[-2], y.shape[1]
     x_lane = _check_lane_cloud("fixed", x, fx, mx, lanes, n, dev)
-    _check_lane_cloud("moving", y, fy, my, lanes, m, dev)
-    _check("yt", yt, torch.float32, (lanes, m, 3), dev)
+    y_lane = _check_lane_cloud("moving", y, fy, my, lanes, m, dev)
+    _check_meta("yt", yt, torch.float32, (lanes, m, 3), dev)
+    yt = _at_lane_stride(yt, y_lane)   # the post set's rows: yt, fy, my
     _check("ell", ell, torch.float32, (lanes,), dev)
     # both clouds are staged as columns: fixed for pre, post and fixed,
     # moving for the moving self set
@@ -631,7 +696,7 @@ def _suite_launch(x, fx, mx, y, fy, my, yt, ell, p: CvoParams, lanes,
     plans, per_sm, sms = _plans_for(IP_SUITE, "suite_geometry",
                                     suite_shapes(n, m), dev)
     fn = _fn(IP_SUITE, "ip_suite_launch",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.POINTER(ctypes.c_int)] * 2
              + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 7)
     shapes, offsets = suite_scratch(plans)
@@ -646,7 +711,8 @@ def _suite_launch(x, fx, mx, y, fy, my, yt, ell, p: CvoParams, lanes,
                                         dtype=torch.int32, device=dev)
                             for k in ("npart", "gnpart", "out_n"))
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(y), _ptr(fy), _ptr(my),
-             _ptr(yt), _ptr(ell), n, m, lanes, x_lane, plan, sizes,
+             _ptr(yt), _ptr(ell), n, m, lanes, x_lane, y_lane,
+             int(tile_skip), plan, sizes,
              pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
              p.sigma * p.sigma, p.c_sigma * p.c_sigma,
              2.0 * p.c_ell * p.c_ell,
@@ -658,7 +724,10 @@ def _suite_launch(x, fx, mx, y, fy, my, yt, ell, p: CvoParams, lanes,
                            blocks_per_sm=per_sm, sms=sms, lanes=lanes,
                            chunks=tuple(q.chunks for q in plans),
                            tiles_per_chunk=tuple(q.tiles_per_chunk
-                                                 for q in plans))
+                                                 for q in plans),
+                           tiles=out_n[:, 4:8],
+                           tile_pairs=tuple(q.row_tiles * q.col_tiles
+                                            for q in plans))
     return out_f, out_n
 
 
@@ -674,18 +743,24 @@ def _suite_tuple(out_f, out_n):
 
 
 def ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p: CvoParams,
-                  launch_info=None):
+                  launch_info=None, tile_skip=True):
     """The CUDA suite kernel: same function and tuple as ip_suite_plain, in
     one launch over the four pair sets (the launch of one lane). A
-    launch_info dict receives the grid, blocks per SM, SMs and each set's
-    split."""
+    launch_info dict receives the grid, blocks per SM, SMs, each set's
+    split, the tile pairs each set computed (`tiles`, a device tensor (4,)
+    in SUITE_SETS order) and each set's tile pairs (`tile_pairs`).
+    tile_skip=False computes every tile pair (the same outputs bit for
+    bit)."""
     dev = x.device
     _check_cloud("fixed", x, fx, mx, x.shape[0], dev)
     _check("yt", yt, torch.float32, (y.shape[0], 3), dev)
     out_f, out_n = _suite_launch(
         x, fx, mx, y[None], fy[None], my[None], yt[None],
-        _as_ell(ell, dev).reshape(1).contiguous(), p, 1, launch_info)
+        _as_ell(ell, dev).reshape(1).contiguous(), p, 1, launch_info,
+        tile_skip)
     IP_SUITE.count_launch()
+    if launch_info is not None:
+        launch_info["tiles"] = out_n[0, 4:8]
     return tuple(t[0] for t in _suite_tuple(out_f, out_n))
 
 
@@ -700,13 +775,14 @@ def ip_suite_lanes_plain(x, fx, mx, y, fy, my, yt, ell, p: CvoParams):
 
 
 def ip_suite_lanes_cuda(x, fx, mx, y, fy, my, yt, ell, p: CvoParams,
-                        launch_info=None):
+                        launch_info=None, tile_skip=True):
     """The CUDA suite kernel over S lanes in one launch: same function and
-    tuple as ip_suite_lanes_plain."""
+    tuple as ip_suite_lanes_plain (launch_info and tile_skip:
+    _suite_launch's)."""
     lanes = y.shape[0]
     _check_lanes(lanes)
     out_f, out_n = _suite_launch(x, fx, mx, y, fy, my, yt, ell, p, lanes,
-                                 launch_info)
+                                 launch_info, tile_skip)
     IP_SUITE_LANES.count_launch()
     return _suite_tuple(out_f, out_n)
 
@@ -752,49 +828,85 @@ def pair_stats_plain(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
                                _as_ell(ell, xa.device), p, with_moments)
 
 
-def pair_stats_cuda(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
-                    with_moments: bool = False, launch_info=None):
-    """The CUDA pair-stats kernel: same function and tuple as
-    pair_stats_plain, in one launch. A launch_info dict receives the grid,
-    blocks per SM, SMs and the split."""
+def _pair_stats_launch(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+                       with_moments, lanes, launch_info=None,
+                       tile_skip=True):
+    """One launch of csrc/pair_stats.cu for `lanes` lanes: rows xa/fa/ma
+    and columns xb/fb/mb each a stack of `lanes` clouds or one cloud of
+    every lane, ell (lanes,). Returns (out_f (lanes, 170), out_n (lanes,
+    3 + groups)). A launch_info dict receives the grid, blocks per SM, SMs,
+    lanes, the split, the tile pairs each lane computed (`tiles`, a device
+    tensor (lanes,)) and a sweep's tile pairs (`tile_pairs`).
+    tile_skip=False computes every tile pair (the same outputs bit for
+    bit)."""
     dev = xa.device
-    n, m = xa.shape[0], xb.shape[0]
-    _check_cloud("row", xa, fa, ma, n, dev)
-    _check_cloud("column", xb, fb, mb, m, dev)
+    n, m = xa.shape[-2], xb.shape[-2]
+    a_lane = _check_lane_cloud("row", xa, fa, ma, lanes, n, dev)
+    b_lane = _check_lane_cloud("column", xb, fb, mb, lanes, m, dev)
     _check_staged("column", xb, fb, mb)
-    ell = _as_ell(ell, dev).contiguous()
+    _check("ell", ell, torch.float32, (lanes,), dev)
     mom = int(with_moments)
     plan, per_sm, sms = _plan_for(PAIR_STATS, "pair_stats_geometry", n, m,
                                   dev, mom)
     fn = _fn(PAIR_STATS, "pair_stats_launch",
-             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 7)
     group = finalize_group(plan.items)
     groups = -(-plan.items // group)
     nf = NG + 1 if with_moments else 1
-    fpart = torch.empty((plan.items, nf), dtype=torch.float32, device=dev)
-    npart = torch.empty((plan.items,), dtype=torch.int32, device=dev)
-    gpart = torch.empty((groups, nf), dtype=torch.float32, device=dev)
-    gnpart = torch.empty((groups,), dtype=torch.int32, device=dev)
-    out_f = torch.empty((170,), dtype=torch.float32, device=dev)
-    out_n = torch.empty((2 + groups,), dtype=torch.int32, device=dev)
+    fpart = torch.empty((lanes, plan.items, nf), dtype=torch.float32,
+                        device=dev)
+    npart = torch.empty((lanes, plan.items), dtype=torch.int32, device=dev)
+    gpart = torch.empty((lanes, groups, nf), dtype=torch.float32, device=dev)
+    gnpart = torch.empty((lanes, groups), dtype=torch.int32, device=dev)
+    out_f = torch.empty((lanes, NG + 1), dtype=torch.float32, device=dev)
+    out_n = torch.empty((lanes, 3 + groups), dtype=torch.int32, device=dev)
     err = fn(_ptr(xa), _ptr(fa), _ptr(ma), _ptr(xb), _ptr(fb), _ptr(mb),
-             _ptr(ell), n, m, plan.chunks, plan.tiles_per_chunk, group, mom,
+             _ptr(ell), n, m, lanes, a_lane, b_lane, plan.chunks,
+             plan.tiles_per_chunk, group, mom, int(tile_skip),
              pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
              p.sigma * p.sigma, p.c_sigma * p.c_sigma,
              2.0 * p.c_ell * p.c_ell, _ptr(fpart), _ptr(npart), _ptr(gpart),
              _ptr(gnpart), _ptr(out_f), _ptr(out_n), _stream(dev))
     _raise_on(err, PAIR_STATS.name)
-    PAIR_STATS.count_launch()
     if launch_info is not None:
-        launch_info.update(grid=plan.items, blocks_per_sm=per_sm, sms=sms,
-                           chunks=plan.chunks,
-                           tiles_per_chunk=plan.tiles_per_chunk)
-    count = out_n[0]
+        launch_info.update(grid=lanes * plan.items, blocks_per_sm=per_sm,
+                           sms=sms, lanes=lanes, chunks=plan.chunks,
+                           tiles_per_chunk=plan.tiles_per_chunk,
+                           tiles=out_n[:, 1],
+                           tile_pairs=plan.row_tiles * plan.col_tiles)
+    return out_f, out_n
+
+
+def _pair_stats_tuple(out_f, out_n, with_moments):
+    """Pair stats' (value, num[, G, inliers]) from a launch's outputs, each
+    with the lane axis first."""
+    count = out_n[:, 0]
     num = torch.where(count == 0, torch.ones_like(count), count).float()
     if not with_moments:
-        return out_f[169], num
-    return out_f[169], num, out_f[:169].reshape(13, 13), count
+        return out_f[:, NG], num
+    return out_f[:, NG], num, out_f[:, :NG].reshape(-1, 13, 13), count
+
+
+def pair_stats_cuda(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+                    with_moments: bool = False, launch_info=None,
+                    tile_skip=True):
+    """The CUDA pair-stats kernel: same function and tuple as
+    pair_stats_plain, in one launch (the launch of one lane). A
+    launch_info dict receives the grid, blocks per SM, SMs, the split, the
+    tile pairs computed (`tiles`, a device tensor) and a sweep's tile pairs
+    (`tile_pairs`). tile_skip=False computes every tile pair (the same
+    outputs bit for bit)."""
+    dev = xa.device
+    _check_cloud("row", xa, fa, ma, xa.shape[0], dev)
+    out_f, out_n = _pair_stats_launch(
+        xa, fa, ma, xb, fb, mb, _as_ell(ell, dev).reshape(1).contiguous(),
+        p, with_moments, 1, launch_info, tile_skip)
+    PAIR_STATS.count_launch()
+    if launch_info is not None:
+        launch_info["tiles"] = out_n[0, 1]
+    return tuple(t[0] for t in _pair_stats_tuple(out_f, out_n,
+                                                 with_moments))
 
 
 def pair_stats(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
@@ -805,6 +917,48 @@ def pair_stats(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
         return pair_stats_plain(xa, fa, ma, xb, fb, mb, ell, p, with_moments)
     if xa.device.type == "cuda":
         return pair_stats_cuda(xa, fa, ma, xb, fb, mb, ell, p, with_moments)
+    raise ValueError(f"unsupported device {xa.device}")
+
+
+def pair_stats_lanes_plain(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+                           with_moments: bool = False):
+    """The plain version of the pair-stats lanes: pair_stats_plain lane by
+    lane, each output stacked on a leading lane axis."""
+    ell = torch.as_tensor(ell, dtype=torch.float32, device=xa.device)
+    outs = [pair_stats_plain(*(_lane(t, l) for t in (xa, fa, ma, xb, fb,
+                                                     mb)),
+                             ell[l], p, with_moments)
+            for l in range(ell.shape[0])]
+    return tuple(torch.stack(v) for v in zip(*outs))
+
+
+def pair_stats_lanes_cuda(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+                          with_moments: bool = False, launch_info=None,
+                          tile_skip=True):
+    """The CUDA pair-stats kernel over S lanes in one launch: same function
+    and tuple as pair_stats_lanes_plain (launch_info and tile_skip:
+    _pair_stats_launch's)."""
+    lanes = ell.shape[0]
+    _check_lanes(lanes)
+    out_f, out_n = _pair_stats_launch(xa, fa, ma, xb, fb, mb, ell, p,
+                                      with_moments, lanes, launch_info,
+                                      tile_skip)
+    PAIR_STATS_LANES.count_launch()
+    return _pair_stats_tuple(out_f, out_n, with_moments)
+
+
+def pair_stats_lanes(xa, fa, ma, xb, fb, mb, ell, p: CvoParams,
+                     with_moments: bool = False):
+    """The pair stats of S cloud pairs: rows xa/fa/ma and columns xb/fb/mb
+    each a stack (S, N, .) / (S, M, .) (laid as stack_lanes lays one) or
+    one cloud (N, .) / (M, .) of every lane, ell (S,). Returns pair_stats'
+    tuple, each entry with a leading lane axis."""
+    if xa.device.type == "cpu":
+        return pair_stats_lanes_plain(xa, fa, ma, xb, fb, mb, ell, p,
+                                      with_moments)
+    if xa.device.type == "cuda":
+        return pair_stats_lanes_cuda(xa, fa, ma, xb, fb, mb, ell, p,
+                                     with_moments)
     raise ValueError(f"unsupported device {xa.device}")
 
 
@@ -979,7 +1133,7 @@ def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
     n, m = x.shape[-2], y0.shape[1]
     _check_lanes(lanes)
     x_lane = _check_lane_cloud("fixed", x, fx, mx, lanes, n, dev)
-    _check_lane_cloud("moving", y0, fy, my, lanes, m, dev)
+    y_lane = _check_lane_cloud("moving", y0, fy, my, lanes, m, dev)
     _check_staged("moving", y0, fy, my)
     _check("R0", R0, torch.float32, (lanes, 3, 3), dev)
     _check("T0", T0, torch.float32, (lanes, 3), dev)
@@ -996,7 +1150,7 @@ def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
     info = (ctypes.c_int * 4)()
     plan, _, _ = _plan_for(ALIGN, "align_fused_geometry", n, m, dev)
     fn = _fn(ALIGN, "align_fused_launch",
-             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
                 ctypes.POINTER(ctypes.c_int)]
              + [ctypes.c_void_p] * 6
@@ -1005,7 +1159,8 @@ def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
     out_f = torch.empty((lanes, 13), dtype=torch.float32, device=dev)
     out_n = torch.empty((lanes, 3), dtype=torch.int32, device=dev)
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(y0), _ptr(fy), _ptr(my), n,
-             m, lanes, x_lane, plan.chunks, plan.tiles_per_chunk, _ptr(init),
+             m, lanes, x_lane, y_lane, plan.chunks, plan.tiles_per_chunk,
+             _ptr(init),
              hf, hi, _ptr(bits), _ptr(fpart), _ptr(npart), _ptr(spart),
              _ptr(out_f), _ptr(out_n), info, _stream(dev))
     _raise_on(err, ALIGN.name)

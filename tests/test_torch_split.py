@@ -167,7 +167,8 @@ def test_suite_scratch_of_the_plan(n, m, resident):
     partials (170 floats for post, one for the others) and counts, its
     level-1 groups of ~sqrt(items) items, each set's partials right after
     the one before (the offsets the kernel is given), and out_n's four
-    counts, the level-2 ticket and one level-1 ticket per group."""
+    counts, the four sets' tile pairs computed, the level-2 ticket and one
+    level-1 ticket per group."""
     plans = _suite_plans(n, m, resident)
     items = [q.items for q in plans]
     groups = [-(-i // kernels.finalize_group(i)) for i in items]
@@ -180,7 +181,7 @@ def test_suite_scratch_of_the_plan(n, m, resident):
         gpart=(sum(g * f for g, f in zip(groups, nf)),),
         gnpart=(sum(groups),),
         out_f=(173,),
-        out_n=(4 + 1 + sum(groups),))
+        out_n=(4 + 4 + 1 + sum(groups),))
     assert offsets[0] == (0, 0, 0, 0)
     for s in range(1, 4):
         assert offsets[s] == tuple(o + k for o, k in zip(offsets[s - 1],
