@@ -6,6 +6,7 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_compare.py kernels ROOT [ROOT2]
     python3 chip_compare.py speculation ROOT
     python3 chip_compare.py xla ROOT
+    python3 chip_compare.py spans WORKLOAD SEED [TRACED_S [PAIRS [COST_S]]]
 
 e2e: chip_smoke.py's end-to-end phases on the package under ROOT: tracking
 under pallas (16 frames) and pallas_iter (8 frames), each with its
@@ -58,6 +59,24 @@ whole xla pass, the moment kernel, and the moment kernel with its
 epilogue; then chip_smoke's six frame pairs as the lanes of one xla lane
 program against the six solo aligns, one call each: wall ms, device ms,
 device operations and their count per lane-iteration.
+
+spans: one benchmark cell (BENCHMARK.json's WORKLOAD, its run's set-up
+and warm-up through benchmark/harness.py) with the port's span recorder
+(cvo_slam_tpu_torch/spans.py) on over a traced window of TRACED_S seconds
+(default 20), its first seconds under the benchmark's profiler sessions
+(benchmark/trace.py): the readings of eval/span_readings.py per window
+frame and every span's self ms per frame; the complete profiler sessions'
+idle gaps moved onto the spans' clock by each session's median offset of
+its frames' starts (the offsets' spread: max - min, after the first frame,
+and quartiles), each given to a span by span_readings.idle_by_span through
+the thread that launched the operation ending it (the trace's thread ids
+matched to the port's by their launches), the share left unattributed
+(idle_unattributed_pct) and the ten spans with the most idle under them;
+then PAIRS (default 3) pairs of
+untraced windows of COST_S seconds (default 15), the recorder off and on
+in turns (off, on, on, off, ...): each window's frames per second and
+spans per frame; and the cost of one span site with the recorder on and
+off on this host.
 
 Each mode prints a result line per phase and exits non-zero without a CUDA
 card.
@@ -457,6 +476,216 @@ def xla_mode(root: str) -> int:
     return 0
 
 
+def _session_gaps(events, frames):
+    """The idle gaps of one profiler session (benchmark/trace.py's window:
+    its first frame's start to its last frame's end) on the harness's
+    perf_counter clock, each with the trace's id of the thread that
+    launched the device operation ending it (None at the window's end);
+    the session's launches as (time on that clock, thread id); and the
+    per-frame offsets of the trace's clock (us) that moved them."""
+    from benchmark import trace as trace_mod
+    frame_ann = sorted((e for e in events
+                        if e.get("cat") == "user_annotation"
+                        and e.get("name") == "bench.frame"),
+                       key=lambda e: e["ts"])
+    if not frame_ann:
+        return [], [], []
+    gpu = [e for e in events if e.get("cat") in trace_mod.GPU_CATS
+           and "dur" in e]
+    runtime = [e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "correlation" in e.get("args", {})]
+    launcher = {e["args"]["correlation"]: e["tid"] for e in runtime}
+    starts = {}
+    for e in gpu:
+        c = e.get("args", {}).get("correlation")
+        starts.setdefault(e["ts"], launcher.get(c))
+    lo = frame_ann[0]["ts"]
+    hi = max(e["ts"] + e["dur"] for e in frame_ann)
+    iv = [(max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in gpu
+          if e["ts"] < hi and e["ts"] + e["dur"] > lo]
+    offsets = [a["ts"] - f0 * 1e6 for a, (f0, _) in zip(frame_ann, frames)]
+    off = sorted(offsets)[len(offsets) // 2]
+    return ([((a - off) / 1e6, (b - off) / 1e6, starts.get(b))
+             for a, b in trace_mod._gaps(iv, lo, hi)],
+            [((e["ts"] - off) / 1e6, e["tid"]) for e in runtime
+             if e["name"] in trace_mod.LAUNCHES], offsets)
+
+
+def _thread_map(launches, taken):
+    """The trace's thread ids as the port's (native ids): each to the
+    thread that was in a span other than a wait at most of its launches
+    (the profiler names a thread it did not see start by another id than
+    the system's). Returns ({trace id: native id}, {trace id: (launches,
+    votes of the chosen thread)})."""
+    import collections
+    from cvo_slam_tpu_torch.eval import span_readings
+    by_tid = collections.defaultdict(list)
+    for sp in taken:
+        by_tid[sp.tid].append(sp)
+    inner = {tid: span_readings.Covering(ss) for tid, ss in by_tid.items()}
+    votes = collections.defaultdict(collections.Counter)
+    count = collections.Counter()
+    for t, k in launches:
+        count[k] += 1
+        for tid, cov in inner.items():
+            sp = cov.at(t)
+            if sp is not None and sp.name not in span_readings.WAITS:
+                votes[k][tid] += 1
+    best = {k: c.most_common(1)[0] for k, c in votes.items()}
+    return ({k: tid for k, (tid, _) in best.items()},
+            {str(k): (count[k], best[k][1] if k in best else 0)
+             for k in count})
+
+
+def _span_site_us(spans, n=200000):
+    """us per `with spans.span(...)` with the recorder as it is."""
+    import time
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with spans.span("cost"):
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def spans_mode(workload: str, seed: int, traced_s: float = 20.0,
+               pairs: int = 3, cost_s: float = 15.0, device="cuda:0",
+               overrides=None) -> int:
+    import gc
+    import statistics
+    import torch
+    from benchmark import harness, run, spec
+    from benchmark import trace as trace_mod
+    from cvo_slam_tpu_torch import spans
+    from cvo_slam_tpu_torch.eval import span_readings
+
+    cell = spec.load_cell(workload)
+    dev = torch.device(device)
+    for k in run.PORT_KNOBS:
+        os.environ.pop(k, None)
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    folder = tempfile.mkdtemp(prefix="cvo-spans-")
+    try:
+        session = harness.Session(cell, seed, dev, folder, overrides)
+        warm = cell.traffic["warmup"].get("frames", 0) or 3 * session.lap
+        it = session.stream(warm + int((traced_s + 2 * pairs * cost_s)
+                                       * 200) + 64)
+        image, g = next(it), 0
+        image, g = session.warm_up(it, image, g)
+        sync()
+        tracer = trace_mod.Tracer(dev, cell, folder)
+        tracer.warm()
+        gc.collect()
+
+        spans.enable()
+        tracer.start()
+        window = session.window(it, image, g, traced_s, tracer.profiler,
+                                tracer.stopped)
+        spans.disable()
+        taken = spans.take()
+        sessions = []
+        for path, frames in tracer.sessions:
+            with open(path) as f:
+                sessions.append((json.load(f)["traceEvents"], frames))
+        summary, _ = tracer.read()
+        n = len(window.frames)
+        iters = sum(f.odo_iters + f.kf_iters for f in window.frames)
+        out = {"mode": "spans", "workload": workload, "seed": seed,
+               "card": card, "frames": n, "window_s": window.window_s,
+               "spans_per_frame": len(taken) / max(n, 1),
+               "readings": span_readings.readings(taken, n, iters,
+                                                   window.events)}
+        gaps, launches, spreads = [], [], []
+        for events, frames in sessions:
+            if trace_mod._read_session(events, frames)["lost"]:
+                continue
+            g_h, l_h, offsets = _session_gaps(events, frames)
+            if not offsets:
+                continue
+            gaps.extend(g_h)
+            launches.extend(l_h)
+            q = statistics.quantiles(offsets, n=4, method="inclusive") \
+                if len(offsets) > 1 else [offsets[0]] * 3
+            rest = offsets[1:] or offsets
+            spreads.append({"frames": len(offsets),
+                            "max_min_ms": (max(offsets) - min(offsets))
+                            / 1e3, "q3_q1_ms": (q[2] - q[0]) / 1e3,
+                            "max_min_ms_after_first": (max(rest) - min(rest))
+                            / 1e3})
+        tid_map, votes = _thread_map(launches, taken)
+        gaps = [(a, b, tid_map.get(k)) for a, b, k in gaps]
+        unattributed, by_name = span_readings.idle_by_span(gaps, taken)
+        idle = sum(g[1] - g[0] for g in gaps)
+        own = span_readings.self_times(taken)
+        self_ms = {}
+        for sp in taken:
+            self_ms[sp.name] = self_ms.get(sp.name, 0.0) \
+                + 1e3 * own[sp.id] / max(n, 1)
+        out.update(
+            self_ms_per_frame=dict(sorted(self_ms.items(),
+                                          key=lambda kv: -kv[1])),
+            gaps=len(gaps),
+            gaps_by_thread=sum(g[2] is not None for g in gaps),
+            launch_threads=votes,
+            idle_s=idle, idle_unattributed_s=unattributed,
+            idle_unattributed_pct=span_readings.idle_unattributed_pct(
+                gaps, taken),
+            idle_by_span=sorted(by_name.items(), key=lambda kv: -kv[1])[:10],
+            offset_spread=spreads,
+            device_idle_pct=None if not summary else 100.0 * (
+                1.0 - summary["busy_s"] / summary["window_s"]))
+        print(json.dumps(out), flush=True)
+
+        cost = []
+        g = window.frames[-1].g + 2
+        image = next(it)
+        for k in range(2 * pairs):
+            on = k % 4 in (1, 2)
+            if on:
+                spans.enable()
+            w = session.window(it, image, g, cost_s)
+            spans.disable()
+            n_spans = len(spans.take())
+            cost.append({"recorder": on, "frames": len(w.frames),
+                         "fps": len(w.frames) / w.window_s,
+                         "spans_per_frame": n_spans / max(len(w.frames), 1)})
+            print(json.dumps({"mode": "spans_cost", "workload": workload,
+                              **cost[-1]}), flush=True)
+            g = w.frames[-1].g + 2
+            image = next(it)
+        session.drain()
+        it.close()
+        session.close()
+        sync()
+        site_off = _span_site_us(spans)
+        spans.enable()
+        site_on = _span_site_us(spans)
+        spans.disable()
+        spans.take()
+        fps = {v: [c["fps"] for c in cost if c["recorder"] == v]
+               for v in (False, True)}
+        # off, on, on, off: a drift linear in time cancels in each block
+        blocks = [(cost[b + 1]["fps"] + cost[b + 2]["fps"])
+                  / (cost[b]["fps"] + cost[b + 3]["fps"])
+                  for b in range(0, len(cost) - 3, 4)]
+        print(json.dumps({
+            "mode": "spans_cost_summary", "workload": workload, "card": card,
+            "site_us_off": site_off, "site_us_on": site_on,
+            "fps_off": fps[False], "fps_on": fps[True],
+            "on_over_off_by_block": blocks,
+            "on_over_off": (statistics.median(fps[True])
+                            / statistics.median(fps[False]))
+            if pairs else None}), flush=True)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -475,6 +704,11 @@ def main() -> int:
         return speculation_mode(sys.argv[2])
     if sys.argv[1:2] == ["xla"] and len(sys.argv) == 3:
         return xla_mode(sys.argv[2])
+    if sys.argv[1:2] == ["spans"] and 4 <= len(sys.argv) <= 7:
+        return spans_mode(sys.argv[2], int(sys.argv[3]),
+                          *(float(a) for a in sys.argv[4:5]),
+                          *(int(a) for a in sys.argv[5:6]),
+                          *(float(a) for a in sys.argv[6:7]))
     print(__doc__, file=sys.stderr)
     return 2
 

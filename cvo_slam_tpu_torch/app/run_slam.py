@@ -20,12 +20,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import logging
 import os
+import statistics
 import threading
 import time
 
+from .. import spans
 from ..backend.ba import make_windowed_ba
 from ..backend.keyframe_graph import KeyframeGraph
 from ..backend.loop_closure import make_loop_detector
@@ -92,6 +95,45 @@ def build_tracker(cam, cfg, verbose=False, device="cuda",
                            verbose=verbose, device=device)
 
 
+FRAME_MARK = "run_slam.frame"   # the profiler's event around each update
+
+
+def _merge_spans(path: str, taken, frame_t0):
+    """Add the port's spans to the chrome trace at `path`, moved onto the
+    trace's clock by the median offset of each frame's FRAME_MARK event to
+    the frame's start on the perf_counter clock."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    marks = sorted(e["ts"] for e in events if e.get("name") == FRAME_MARK
+                   and e.get("ph") == "X")
+    if marks and len(marks) == len(frame_t0):
+        offset = statistics.median(ts - t * 1e6
+                                   for ts, t in zip(marks, frame_t0))
+        events.extend(spans.chrome_events(taken, offset))
+    else:
+        log.warning("profile trace: %d frame marks for %d frames; spans "
+                    "left out", len(marks), len(frame_t0))
+    with open(path, "w") as f:
+        json.dump(trace, f)
+
+
+@contextlib.contextmanager
+def _recording(taken: list):
+    """The span recorder on for the block, its spans put in `taken` when
+    the block ends, however it ends; a recorder a caller already has on is
+    left on and its spans are not taken."""
+    if spans.ENABLED:
+        yield
+        return
+    spans.enable()
+    try:
+        yield
+    finally:
+        spans.disable()
+        taken.extend(spans.take())
+
+
 def _stage_stats(rows, per_event: bool):
     """mean / max (and with per_event the count and total) of each stage
     over the rows; with per_event the mean is over the rows where the stage
@@ -116,8 +158,9 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
     backend and, with the SLAM backend, keyframes, keyframe_path_ms per
     stage and lc_stage_ms per loop-closure sub-stage, all in ms per
     event). mesh_devices / mesh: see build_tracker. With profile_dir, the
-    frame loop runs under torch.profiler and
-    its trace is written to profile_dir/trace.json (chrome trace format)."""
+    frame loop runs under torch.profiler and with the port's spans
+    recorded (spans.py), and the profiler's trace with the spans of every
+    thread is written to profile_dir/trace.json (chrome trace format)."""
     device = resolve_device(device)
     cam = (cam_name if isinstance(cam_name, CameraConfig)
            else CAMERA_PRESETS[cam_name])
@@ -130,11 +173,15 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
     start_warmup(device)
     tracker.init()
     backend = tracker.lt.cvo_odometry.backend   # CVO_SLAM_BACKEND
-    profiler = contextlib.nullcontext()
+    profiler = recording = contextlib.nullcontext()
+    frame_mark = contextlib.nullcontext
+    frame_t0, taken = [], []
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
         profiler = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        frame_mark = functools.partial(record_function, FRAME_MARK)
+        recording = _recording(taken)
 
     traj_path = os.path.join(folder, "Tracking_trajectory.txt")
     metrics_path = os.path.join(folder, "metrics.jsonl")
@@ -142,7 +189,7 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
     frames = FramePrefetcher(folder, records, cam, cfg.frontend)
     update_total_s = 0.0
     with open(traj_path, "w") as traj, open(metrics_path, "w") as mf, \
-            profiler as prof:
+            profiler as prof, recording:
         it = iter(frames)
         image = next(it, None)
         i = -1
@@ -155,8 +202,10 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
             if i == len(records) - 1:
                 tracker.force_keyframe()
             t0 = time.perf_counter()
-            pose = tracker.update(image, next_frame=nxt)
+            with frame_mark():
+                pose = tracker.update(image, next_frame=nxt)
             dt = time.perf_counter() - t0
+            frame_t0.append(t0)
             update_total_s += dt
             traj.write(tum.pose_to_tum_line(image.timestamp, pose) + "\n")
             lc_num = 0 if tracker.graph is None else tracker.graph.lc_num
@@ -171,7 +220,9 @@ def run(folder: str, association: str, cam_name, cfg: SlamConfig,
     wall = time.perf_counter() - t_start
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        _merge_spans(path, taken, frame_t0)
 
     if not cfg.OnlyTracking:
         tracker.write_slam_trajectory_and_loop_closure(

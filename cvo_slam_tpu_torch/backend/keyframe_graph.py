@@ -41,6 +41,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from .. import spans
 from ..config import CameraConfig, SlamConfig
 from ..device import resolve_device
 from ..parallel import sharded_lm
@@ -104,7 +105,8 @@ class KeyframeGraph:
 
     # -- public API (keyframe_graph.cpp:149-162, 2144-2160)
     def add(self, local_map: LocalMap):
-        self._new_keyframe(local_map)
+        with spans.span("backend.event"):
+            self._new_keyframe(local_map)
 
     def keyframes(self) -> List[Keyframe]:
         return self._keyframes
@@ -115,10 +117,12 @@ class KeyframeGraph:
         self.stage_ms.append(stage)
 
         def timed(key, fn, *a):
-            t0 = time.perf_counter()
-            out = fn(*a)
-            stage[key] = stage.get(key, 0.0) \
-                + (time.perf_counter() - t0) * 1e3
+            with spans.span(f"backend.{key}") as sp:
+                t0 = time.perf_counter()
+                out = fn(*a)
+                t1 = time.perf_counter()
+                sp.times(t0, t1)
+            stage[key] = stage.get(key, 0.0) + (t1 - t0) * 1e3
             return out
 
         # the vocabulary step of the map's keyframes (made by the tracker

@@ -38,6 +38,7 @@ import time
 
 import numpy as np
 
+from .. import spans
 from ..config import CameraConfig, CvoParams, SlamConfig
 from ..cvo import engine
 from ..device import StreamWorker
@@ -50,19 +51,24 @@ from ..tracking.types import Keyframe, TrackingResult
 
 def _verify(reference: engine.PointCloud, cand: engine.PointCloud,
             lc_prior: np.ndarray, prior: np.ndarray, p: CvoParams,
-            backend: str):
+            backend: str, cause=None):
     """One candidate's CVO re-registration from the inverse of its RANSAC
     prior, then compute_innerproduct_lc: (transform f64, host lc dict,
-    (start, end) of this call on the perf_counter clock)."""
-    t0 = time.perf_counter()
-    inv = np.linalg.inv(lc_prior)
-    (res, lc), = engine.lc_verify_batch(
-        reference, [cand], [inv[:3, :3].astype(np.float32)],
-        [inv[:3, 3].astype(np.float32)], [np.float32(p.ell_init)],
-        [prior.astype(np.float32)], [lc_prior.astype(np.float32)], p,
-        backend)
-    T = res.transform.cpu().numpy().astype(np.float64)
-    return T, engine.to_host(lc), (t0, time.perf_counter())
+    (start, end) of this call on the perf_counter clock). `cause`: the
+    span that issued it (spans.current() of the submitting thread)."""
+    with spans.span("lc.verify", None, cause) as sp:
+        t0 = time.perf_counter()
+        inv = np.linalg.inv(lc_prior)
+        (res, lc), = engine.lc_verify_batch(
+            reference, [cand], [inv[:3, :3].astype(np.float32)],
+            [inv[:3, 3].astype(np.float32)], [np.float32(p.ell_init)],
+            [prior.astype(np.float32)], [lc_prior.astype(np.float32)], p,
+            backend)
+        T = res.transform.cpu().numpy().astype(np.float64)
+        lc = engine.to_host(lc)
+        t1 = time.perf_counter()
+        sp.times(t0, t1)
+    return T, lc, (t0, t1)
 
 
 def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
@@ -134,6 +140,7 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
         _refresh_stale(keyframes)   # no-op when prefetch already ran
         t1 = time.perf_counter()
         row["refresh"] = (t1 - t0) * 1e3
+        spans.record("lc.refresh", t0, t1)
 
         matcher.reset_round()
         scored = []
@@ -146,6 +153,7 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
         scored.sort(reverse=True)
         t2 = time.perf_counter()
         row["score"] = (t2 - t1) * 1e3
+        spans.record("lc.score", t1, t2)
 
         # phase 1 (host, overlapped with the device): ORB matching +
         # RANSAC prior per candidate in BoW-score order (landmark /
@@ -175,14 +183,17 @@ def make_loop_detector(cam: CameraConfig, cfg: SlamConfig, vocabulary=None):
             lc_prior = np.asarray(T_cr, np.float64)
             fut = verifier[0].submit(_verify, reference.cloud, cand.cloud,
                                      lc_prior, prior, cfg.cvo,
-                                     verify_backend)
+                                     verify_backend, spans.current())
             cands.append((cand, float(s), matches, lc_prior, prior, fut))
         t3 = time.perf_counter()
         row["ransac"] = (t3 - t2) * 1e3
+        spans.record("lc.ransac", t2, t3)
 
         # phase 2 (device): the verifications, read in candidate order
         verified = [c[5].result() for c in cands]
-        row["verify"] = (time.perf_counter() - t3) * 1e3
+        t4 = time.perf_counter()
+        row["verify"] = (t4 - t3) * 1e3
+        spans.record("lc.verify_wait", t3, t4)
         row["overlap"] = sum(max(0.0, min(end, t3) - start)
                              for _, _, (start, end) in verified) * 1e3
         row["n_cands"] = len(cands)

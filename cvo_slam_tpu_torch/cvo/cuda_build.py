@@ -20,7 +20,6 @@ import re
 import shutil
 import subprocess
 import threading
-import time
 from typing import Dict
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# what the last build did: seconds of wall time and ptxas's report per source
+# what the last build did: ptxas's report per source
 build_report: Dict[str, object] = {}
 
 
@@ -87,7 +86,6 @@ def build_all() -> Dict[str, str]:
         return targets
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
-    t0 = time.perf_counter()
     procs = {}
     for src, so in todo.items():
         tmp = f"{so[:-3]}.{os.getpid()}.tmp.so"
@@ -103,7 +101,7 @@ def build_all() -> Dict[str, str]:
             failures.append(f"{src}:\n{err}")
         else:
             os.replace(tmp, so)
-    build_report.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
+    build_report.update(ptxas=ptxas)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return targets

@@ -18,6 +18,7 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List
 
+from .. import spans
 from ..config import CameraConfig, FrontendParams
 from ..frontend.pointcloud import create_pointcloud
 from . import tum
@@ -39,11 +40,12 @@ class FramePrefetcher:
         self.depth = max(1, depth)
         self.workers = max(1, workers)
 
-    def _produce(self, rec: tum.FrameRecord) -> tum.ImagePair:
-        image = tum.load_image(self.folder, rec)
-        image.precomputed_cloud = create_pointcloud(
-            image.bgr, image.gray, image.depth, self.cam, self.fp)
-        return image
+    def _produce(self, k: int) -> tum.ImagePair:
+        with spans.span("prefetch.load", k):
+            image = tum.load_image(self.folder, self.records[k])
+            image.precomputed_cloud = create_pointcloud(
+                image.bgr, image.gray, image.depth, self.cam, self.fp)
+            return image
 
     def __len__(self):
         return len(self.records)
@@ -59,8 +61,8 @@ class FramePrefetcher:
                 nonlocal next_submit
                 while (next_submit < len(self.records)
                        and next_submit - consumed_idx < self.depth):
-                    pending[next_submit] = pool.submit(
-                        self._produce, self.records[next_submit])
+                    pending[next_submit] = pool.submit(self._produce,
+                                                       next_submit)
                     next_submit += 1
 
             top_up(0)

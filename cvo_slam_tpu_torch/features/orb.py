@@ -22,12 +22,14 @@ Implementation notes (deviations, documented):
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from functools import lru_cache
 
 import cv2
 import numpy as np
 
+from .. import spans
 from ..config import CameraConfig, SlamConfig
 
 HALF_PATCH = 15
@@ -510,14 +512,16 @@ class KeyframeFeatureHook:
         self.last_ms = 0.0   # keyframe feature cost, surfaced in metrics
 
     def __call__(self, kf):
-        import time
-        t0 = time.perf_counter()
-        kp, ang, desc = self.extractor.extract(kf.gray, kf.depth_m,
-                                               kf.selected_pixels)
-        kf.keypoints = kp
-        kf.kp_angle = ang
-        kf.descriptors = desc
-        self.last_ms = (time.perf_counter() - t0) * 1e3
+        with spans.span("features.orb") as sp:
+            t0 = time.perf_counter()
+            kp, ang, desc = self.extractor.extract(kf.gray, kf.depth_m,
+                                                   kf.selected_pixels)
+            kf.keypoints = kp
+            kf.kp_angle = ang
+            kf.descriptors = desc
+            t1 = time.perf_counter()
+            sp.times(t0, t1)
+        self.last_ms = (t1 - t0) * 1e3
 
     def bow(self, kf):
         """Add the keyframe's descriptors to an online vocabulary (no-op for

@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from functools import lru_cache
 from typing import Optional
 
@@ -20,6 +21,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "native", "selector.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _SO = os.path.join(BUILD_DIR, "_selector.so")
+# the prefetcher's workers select pixels in parallel, and their first calls
+# may both find no library: one build at a time (two g++ runs writing one
+# temporary file failed one of them, which then took the NumPy path)
+_lock = threading.Lock()
 
 
 def _build() -> bool:
@@ -43,8 +48,9 @@ def _build() -> bool:
 def _lib() -> Optional[ctypes.CDLL]:
     if os.environ.get("CVO_SLAM_NATIVE", "1") == "0":
         return None
-    if not _build():
-        return None
+    with _lock:
+        if not _build():
+            return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:

@@ -18,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import spans
 from ..config import CameraConfig, SlamConfig
 from ..data.tum import ImagePair, pose_to_tum_line
 from .local_tracker import LocalTracker
@@ -38,6 +39,7 @@ class KeyframeTracker:
         self.previous: Optional[ImagePair] = None
         self.initial_transformation = np.eye(4)
         self.verbose = verbose
+        self.frames = 0   # update calls: the frame index of spans.py's spans
 
         self.lt.map_initialized_callbacks.append(self._on_map_initialized)
         self.lt.map_complete_callbacks.append(self._on_map_complete)
@@ -93,8 +95,10 @@ class KeyframeTracker:
         executor can dispatch its device work before this frame's readback
         (tracking.local_tracker.SpeculativeExecutor)."""
         from .local_tracker import drive
-        return drive(self.update_steps(current, next_frame),
-                     self.lt.executor)
+        frame, self.frames = self.frames, self.frames + 1
+        with spans.span("tracker.update", frame):
+            return drive(self.update_steps(current, next_frame),
+                         self.lt.executor)
 
     def update_steps(self, current: ImagePair, next_frame: ImagePair = None):
         """Generator form of update (device-dispatch request protocol, see

@@ -145,6 +145,37 @@ def test_run_slam_cli_only_tracking(seq, tmp_path):
     assert all(m["kf_iters"] > 0 for m in lines[2:])
 
 
+def test_native_selector_builds_once(monkeypatch):
+    """The prefetcher's workers load the native selector at once: one build
+    runs at a time, so no worker finds another's half-written library and
+    falls back while the others use it."""
+    import threading
+    import time
+    from cvo_slam_tpu_torch.frontend import native as tnative
+    active, most = [0], [0]
+
+    def build():
+        active[0] += 1
+        most[0] = max(most[0], active[0])
+        time.sleep(0.05)
+        active[0] -= 1
+        return False
+
+    monkeypatch.setenv("CVO_SLAM_NATIVE", "1")
+    monkeypatch.setattr(tnative, "_build", build)
+    tnative._lib.cache_clear()
+    try:
+        threads = [threading.Thread(target=tnative._lib) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert most[0] == 1
+    finally:
+        tnative._lib.cache_clear()
+
+
 @pytest.mark.parametrize("native", ["1", "0"])
 def test_frontend_cloud_bitwise(seq, native, monkeypatch):
     """The port's frontend copy builds the same cloud, bit for bit, as the
