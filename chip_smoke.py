@@ -257,6 +257,7 @@ evaluated.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -323,13 +324,16 @@ LOCKSTEP_STEPS = (None, (-0.003, 0.005, -0.002, -0.008, 0.009, -0.006),
 # harness's repeats (best of, after one untimed call)
 SHARDED_LANES = 8
 SHARDS = 4
+# phase 2: the Hessian epilogue's lane counts (solo, and a stack of 8)
+HESSIAN_POST_LANES = (1, 8)
 SCALING_REPEATS = 3
 # kernels on no path of the JAX package (only its tests call them): their
 # launches are those of the phase-2 checks
 CHECK_ONLY = ("flow", "step_coeffs")
 # the port's CUDA kernels as torch.profiler names them
 OUR_KERNELS = ("moment_keep_pass", "moment_sum_pass", "suite_",
-               "pair_stats_sweep", "flow_pass", "step_pass", "align_kernel")
+               "pair_stats_sweep", "flow_pass", "step_pass", "align_kernel",
+               "hessian_post")
 # the CUDA kernels each wrapper launches, as torch.profiler names them
 DEVICE_NAMES = {
     "moment_flow_step": ("moment_keep_pass", "moment_sum_pass"),
@@ -342,6 +346,7 @@ DEVICE_NAMES = {
     "align_fused_lanes": ("align_kernel",),
     "ip_suite_lanes": ("suite_",),
     "pair_stats_lanes": ("pair_stats_sweep",),
+    "hessian_post": ("hessian_post",),
 }
 
 
@@ -1003,6 +1008,75 @@ def align_checks(seq, p, report):
                                  bound_by=by, iterations=n_iter,
                                  ms_per_iteration=t_k / n_iter,
                                  launch=launch)
+
+
+def hessian_post_checks(seq, p, report):
+    """Phase 2, the Hessian epilogue: the kernel against its plain version
+    on the card, bit for bit, on the suite's Hessians of the sequence's
+    frame pairs at both ells, at S = 1 and 8 lanes and at a floor of 2 (the
+    64-step cap); its device and host ms and device operations per call
+    beside the plain version's. Its bound is latency (40 dependent
+    rotation rounds a lane), not bytes or flops: no bound_ms."""
+    import numpy as np
+    import torch
+    from cvo_slam_tpu_torch.cvo import kernels
+    from cvo_slam_tpu_torch.ops import pairwise, se3
+    twist = se3.exp_se3(torch.tensor(TWIST, device="cuda"))
+    hs, inls = [], []
+    for k in range(len(seq) - 1):
+        (x, fx, mx), (y, fy, my) = seq[k], seq[k + 1]
+        yt = se3.transform_points(twist, y).contiguous()
+        for ell in ELLS:
+            out = kernels.ip_suite_cuda(x, fx, mx, y, fy, my, yt, ell, p)
+            hs.append(pairwise.assemble_hessian(
+                out[8], torch.tensor(ell, device="cuda")))
+            inls.append(out[9])
+    H_all, inl_all = torch.stack(hs), torch.stack(inls)
+    cap = dataclasses.replace(p, hessian_min_abs_eig=2.0)
+    for q in (p, cap):
+        got = kernels.hessian_post_cuda(H_all, inl_all, q)
+        want = kernels.hessian_post_plain(H_all, inl_all, q)
+        for g, w in zip(got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(
+                    f"hessian_post ({len(hs)} lanes, floor "
+                    f"{q.hessian_min_abs_eig}) differs from its plain "
+                    f"version: {(g != w).sum().item()} entries")
+    entry = report["hessian_post"]
+    for lanes in HESSIAN_POST_LANES:
+        H, inl = H_all[:lanes].contiguous(), inl_all[:lanes]
+
+        def kern():
+            kernels.hessian_post_cuda(H, inl, p)
+
+        def plain():
+            kernels.hessian_post_plain(H, inl, p)
+        row = {}
+        for name, fn, reps in (("kernel", kern, 50), ("plain", plain, 10)):
+            fn()
+            host = float(np.median([_wall_ms(fn) for _ in range(reps)]))
+            # the window that held the most device operations (the profiler
+            # may lose some of a call's ~1500)
+            dev, ops = max((_device_once(fn) for _ in range(3)),
+                           key=lambda r: (r[1], -(r[0] or 0.0)))
+            row[name] = dict(host_ms=host, device_ms=dev, device_ops=ops)
+        row["kernel"]["queued_device_ms"] = queued_device_ms(kern, 50)
+        k, pl = row["kernel"], row["plain"]
+        print(f"hessian_post {lanes} lanes: kernel host {k['host_ms']:.4f} "
+              f"ms a call (launch to synchronize), device "
+              f"{k['device_ms']:.4f} ms ({k['device_ops']} device "
+              f"operations; queued {k['queued_device_ms']:.4f} ms); plain "
+              f"host {pl['host_ms']:.4f} ms, device {pl['device_ms']:.4f} "
+              f"ms ({pl['device_ops']} device operations); bit for bit "
+              f"equal; bound: latency", flush=True)
+        if k["device_ops"] != 1:
+            raise AssertionError(f"hessian_post: {k['device_ops']} device "
+                                 f"operations a call, want 1")
+        entry["times_by_ell"][f"S={lanes}"] = row
+        if lanes == 1:
+            entry.update(ms=k["host_ms"], device_ms=k["device_ms"],
+                         plain_ms=pl["host_ms"],
+                         bound_by="latency: 40 dependent rotation rounds")
 
 
 def _stack(clouds):
@@ -1976,6 +2050,7 @@ def tracking(folder, gt, report, card, backend, n_frames=N_FRAMES,
               "pallas_iter": "flow_and_step", "pallas": "align_fused"}
     align = aligns.get(backend)
     ok = launches["ip_suite"] == n_align and stats["backend"] == backend \
+        and launches["hessian_post"] == n_align \
         and all(launches[k] == 0 for k in aligns.values() if k != align)
     if backend == "pallas":
         ok &= launches[align] == n_align
@@ -2082,6 +2157,8 @@ def lockstep(frames, cam, report, card):
         want = {"ip_suite_lanes": 2 * rounds["frame"] + rounds["align_ip"]
                 + rounds["ip"], "ip_suite": 0, "align_fused": 0,
                 "moment_flow_step": 0, "align_fused_lanes": 0}
+        # one epilogue launch per suite lanes launch
+        want["hessian_post"] = want["ip_suite_lanes"]
         if lanes_kernel:
             want["align_fused_lanes"] = 2 * rounds["frame"] \
                 + rounds["align_ip"] + rounds["align"]
@@ -2127,7 +2204,8 @@ def lockstep(frames, cam, report, card):
                                                      "pallas_mom")
     equal("pallas_mom (xla lanes)", got, solo)
     check_launches("pallas_mom", launches, rounds, False)
-    _no_kernel("lockstep pallas_mom", launches, plain, ("ip_suite_lanes",))
+    _no_kernel("lockstep pallas_mom", launches, plain,
+               ("ip_suite_lanes", "hessian_post"))
     S = len(short)
     xla_ms = [m for _, t, _ in solo for m in t[2:]]
     mom_ms = [m for _, t, _ in solo_mom for m in t[2:]]
@@ -2284,8 +2362,11 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
           f"(run() in all); tracking ATE {ate_track:.4f} m, "
           f"SLAM ATE {ate_slam:.4f} m", flush=True)
     align = "align_fused" if backend == "pallas" else "moment_flow_step"
-    used = (align, "ip_suite", "pair_stats")
+    used = (align, "ip_suite", "pair_stats", "hessian_post")
+    # one epilogue launch per suite and per verification (8 pair stats)
+    epilogues = launches["ip_suite"] + launches["pair_stats"] // 8
     if min(launches[k] for k in used) <= 0 or stats["backend"] != backend \
+            or launches["hessian_post"] != epilogues \
             or any(n for k, n in launches.items() if k not in used):
         raise AssertionError(f"{backend}: SLAM launched {launches}")
     if backend == "pallas":
@@ -2376,7 +2457,7 @@ def lc_batch(calls, report, card):
                                      f"{cap}): candidate {l} differs from "
                                      f"its one-candidate call")
         align = {"pallas": {"align_fused_lanes": 1}}.get(backend, {})
-        if launches != {"pair_stats_lanes": 8, **align}:
+        if launches != {"pair_stats_lanes": 8, "hessian_post": 1, **align}:
             raise AssertionError(f"lc_verify_batch ({backend}, CAP {cap}, "
                                  f"{len(cs)} candidates) launched "
                                  f"{launches}")
@@ -2902,6 +2983,7 @@ def main(argv=None) -> int:
             flow_step_checks(clouds, p, report)
             seq = sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1)
             align_checks(seq, p, report)
+            hessian_post_checks(seq, p, report)
             lane_checks(seq, p, report)
             lanes_any_capacity(
                 sequence_clouds(folder, cam, CAPS[1], ALIGN_PAIRS + 1), p)

@@ -39,7 +39,9 @@
     on its inputs bit for bit. 'pallas_mom' and 'pallas_iter' align lane
     by lane.
   * the Hessian's eigenvalue floor (se3_Hessian, cvo.cpp:620-759) is
-    `hessian_postprocess` (`hessian_postprocess_lanes` for a stack).
+    `hessian_postprocess` (`hessian_postprocess_lanes` for a stack), one
+    launch of the epilogue kernel (cvo.kernels.hessian_post) per inner
+    product or stack of lanes, with no host read.
 
 Host-side `Cvo` mirrors the reference state plumbing: fixed/moving/previous
 clouds, update_fixed_pcd (:578), update_previous_pcd (:584), reset_keyframe
@@ -60,7 +62,6 @@ from ..config import CvoParams
 from ..device import resolve_device
 from ..frontend.pointcloud import PointCloudHost
 from ..ops import cubic, pairwise, se3
-from ..ops.jacobi import eigvalsh_jacobi
 from . import kernels
 
 ALIGN_CHUNK = 4   # align iterations between two reads of the stop flag
@@ -314,30 +315,9 @@ def hessian_postprocess(H_raw, inliers, p: CvoParams):
 
 
 def hessian_postprocess_lanes(H_raw, inliers, p: CvoParams):
-    """hessian_postprocess of a stack (S, 6, 6) with inliers (S,).
-
-    The eigenvalues come from one fixed-sweep Jacobi call over the stack on
-    the device (which gives each matrix's eigenvalues bit for bit as alone)
-    and one host copy; the shift loop (at most 64 steps, float32 like the
-    device) runs on each lane's six host copies."""
-    H = H_raw * p.hessian_scale
-    lams = eigvalsh_jacobi(H)
-    with spans.span("device.read"):
-        lams = lams.cpu().numpy()
-    totals = np.zeros(len(lams), np.float32)
-    for j, lam in enumerate(lams):
-        total = np.float32(0.0)
-        for _ in range(64):
-            lam_min = lam[np.argmin(np.abs(lam))]
-            if not abs(lam_min) < p.hessian_min_abs_eig:
-                break
-            shift = np.float32(1.0) - lam_min
-            lam = lam + shift
-            total = np.float32(total + shift)
-        totals[j] = total
-    eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    H = H + torch.as_tensor(totals, device=H.device)[:, None, None] * eye
-    return torch.where(inliers.reshape(-1, 1, 1) > 0, H, eye)
+    """hessian_postprocess of a stack (S, 6, 6) with inliers (S,): on the
+    card one launch of the epilogue kernel (cvo.kernels.hessian_post)."""
+    return kernels.hessian_post(H_raw, inliers, p)[0]
 
 
 @spans.traced("innerproduct")

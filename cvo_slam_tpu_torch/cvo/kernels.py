@@ -36,6 +36,13 @@ version.
     against one shared fixed cloud), a stopped lane frozen while the
     others run, each lane equal to its one-lane launch bit for bit (the
     one-lane align is its S = 1 launch).
+  * `hessian_post` (csrc/hessian_post.cu): the Hessian epilogue of the
+    inner products (the eigenvalue floor of se3_Hessian, cvo.cpp:726-754):
+    scale, fixed-sweep Jacobi eigenvalues and the spectrum shift of a stack
+    of S Hessians in one launch, one thread a lane. It replaces no Pallas
+    kernel: its plain version (ops/jacobi.eigvalsh_jacobi, a host copy of
+    the eigenvalues and a float32 shift loop there) issues ~1530 launches
+    and one synchronisation a call.
 
 Every kernel splits its pairs into work items, a row tile against a chunk
 of 32-column tiles; `plan_split` sizes the items to the card's resident
@@ -72,10 +79,13 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
+from .. import spans
 from ..config import CvoParams
 from ..ops import pairwise
+from ..ops.jacobi import eigvalsh_jacobi
 from . import cuda_build
 
 KEEP_WORD = 32   # columns per word of the keep bitmask
@@ -121,8 +131,11 @@ IP_SUITE_LANES = KernelInfo("ip_suite_lanes", "ip_suite.cu",
                             "cvo_slam_tpu/cvo/pallas_kernels.py:802")
 PAIR_STATS_LANES = KernelInfo("pair_stats_lanes", "pair_stats.cu",
                               "cvo_slam_tpu/cvo/pallas_kernels.py:418")
+# no Pallas kernel: the JAX package's plain hessian_postprocess, on the card
+HESSIAN_POST = KernelInfo("hessian_post", "hessian_post.cu",
+                          "none (cvo_slam_tpu/cvo/engine.py:264, plain)")
 KERNELS = (MOMENT, IP_SUITE, PAIR_STATS, FLOW_AND_STEP, FLOW, STEP, ALIGN,
-           ALIGN_LANES, IP_SUITE_LANES, PAIR_STATS_LANES)
+           ALIGN_LANES, IP_SUITE_LANES, PAIR_STATS_LANES, HESSIAN_POST)
 MAX_LANES = 32   # lanes of one align_fused launch (csrc/align_fused.cu)
 # a stack's lane stride is its capacity rounded up to this many points, so
 # that every lane's positions (12 B a point), features (20 B) and mask
@@ -1246,3 +1259,69 @@ def align_fused(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams):
     if x.device.type == "cuda":
         return align_fused_cuda(x, fx, mx, y0, fy, my, R0, T0, ell0, p)
     raise ValueError(f"unsupported device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Hessian epilogue of the inner products (cvo.cpp:726-755)
+# ---------------------------------------------------------------------------
+
+def hessian_post_plain(H_raw, inliers, p: CvoParams):
+    """The plain version of the epilogue kernel: (post_hessian (S, 6, 6),
+    total shift (S,)) of a stack H_raw (S, 6, 6) with inliers (S,).
+
+    The eigenvalues come from one fixed-sweep Jacobi call over the stack on
+    the device (which gives each matrix's eigenvalues bit for bit as alone)
+    and one host copy; the shift loop (at most 64 steps, float32 like the
+    device) runs on each lane's six host copies."""
+    H = H_raw * p.hessian_scale
+    lams = eigvalsh_jacobi(H)
+    with spans.span("device.read"):
+        lams = lams.cpu().numpy()
+    totals = np.zeros(len(lams), np.float32)
+    for j, lam in enumerate(lams):
+        total = np.float32(0.0)
+        for _ in range(64):
+            lam_min = lam[np.argmin(np.abs(lam))]
+            if not abs(lam_min) < p.hessian_min_abs_eig:
+                break
+            shift = np.float32(1.0) - lam_min
+            lam = lam + shift
+            total = np.float32(total + shift)
+        totals[j] = total
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    totals = torch.as_tensor(totals, device=H.device)
+    H = H + totals[:, None, None] * eye
+    return torch.where(inliers.reshape(-1, 1, 1) > 0, H, eye), totals
+
+
+def hessian_post_cuda(H_raw, inliers, p: CvoParams):
+    """The CUDA epilogue kernel: same function and pair as
+    hessian_post_plain, bit for bit, in one launch and no host read. H_raw
+    (S, 6, 6) f32 contiguous, inliers (S,) int32 at any stride."""
+    dev = H_raw.device
+    lanes = H_raw.shape[0]
+    _check("H_raw", H_raw, torch.float32, (lanes, 6, 6), dev)
+    _check_meta("inliers", inliers, torch.int32, (lanes,), dev)
+    post = torch.empty_like(H_raw)
+    totals = torch.empty((lanes,), dtype=torch.float32, device=dev)
+    fn = _fn(HESSIAN_POST, "hessian_post_launch",
+             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
+    err = fn(_ptr(H_raw), _ptr(inliers), lanes, inliers.stride(0),
+             p.hessian_scale, p.hessian_min_abs_eig, _ptr(post),
+             _ptr(totals), _stream(dev))
+    _raise_on(err, HESSIAN_POST.name)
+    HESSIAN_POST.count_launch()
+    return post, totals
+
+
+def hessian_post(H_raw, inliers, p: CvoParams):
+    """Scale a stack of raw Hessians H_raw (S, 6, 6) by hessian_scale, then
+    shift each one's spectrum until its least |eigenvalue| reaches
+    hessian_min_abs_eig (cvo.cpp:726-754); the identity for a lane with no
+    inliers (S,). Returns (post_hessian (S, 6, 6), total shift (S,))."""
+    if H_raw.device.type == "cpu":
+        return hessian_post_plain(H_raw, inliers, p)
+    if H_raw.device.type == "cuda":
+        return hessian_post_cuda(H_raw, inliers, p)
+    raise ValueError(f"unsupported device {H_raw.device}")
