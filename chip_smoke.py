@@ -2852,7 +2852,7 @@ def device_frontend(folder, card, n_frames=4):
             " HSV" if fp.feature_type == 0 else "")
         t_dev.setdefault(key, []).append((t1 - t0) * 1e3)
         t_host.setdefault(key, []).append((t2 - t1) * 1e3)
-        pos, feat, mask, count, pix = (t.cpu().numpy() for t in got)
+        pos, feat, mask, count, pix = (t.cpu().numpy() for t in got[:5])
         n = host.count
         if int(count) != n or not mask[:n].all() or mask[n:].any():
             raise AssertionError(f"device frontend {key} frame {k}: count "

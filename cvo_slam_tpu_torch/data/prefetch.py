@@ -20,7 +20,7 @@ from typing import Iterator, List
 
 from .. import spans
 from ..config import CameraConfig, FrontendParams
-from ..frontend.pointcloud import create_pointcloud
+from ..frontend.pointcloud import create_pointcloud, span_attrs
 from . import tum
 
 
@@ -41,10 +41,11 @@ class FramePrefetcher:
         self.workers = max(1, workers)
 
     def _produce(self, k: int) -> tum.ImagePair:
-        with spans.span("prefetch.load", k):
+        with spans.span("prefetch.load", k) as sp:
             image = tum.load_image(self.folder, self.records[k])
-            image.precomputed_cloud = create_pointcloud(
+            pc = image.precomputed_cloud = create_pointcloud(
                 image.bgr, image.gray, image.depth, self.cam, self.fp)
+            span_attrs(sp, pc, image.gray.shape)
             return image
 
     def __len__(self):

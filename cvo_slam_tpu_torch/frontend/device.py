@@ -355,17 +355,21 @@ def _build_cloud(status, depth, bgr, dx0, dy0, cam: CameraConfig, cap: int,
     features = scat(torch.cat([color, gscale * dx0[..., None],
                                gscale * dy0[..., None]], -1))
     pix = scat(torch.stack([xs, ys], -1), torch.int32)
-    count = torch.clamp(keep.sum(), max=cap)
+    n_selected = keep.sum()
+    count = torch.clamp(n_selected, max=cap)
     mask = torch.arange(cap, device=dev) < count
     order = _morton_order_device(positions, mask)
-    return positions[order], features[order], mask, count, pix[order]
+    return (positions[order], features[order], mask, count, pix[order],
+            n_selected, n_selected - count)
 
 
 def create_pointcloud_device(bgr, gray, depth, cam: CameraConfig,
                              fp: FrontendParams, device="cuda"):
     """Device-path create_pointcloud from host images (bgr (H, W, 3) uint8,
     gray (H, W), depth (H, W) uint16): (positions, features, mask, count,
-    selected_pixels) on `device`, at capacity fp.cloud_capacity. Matches
+    selected_pixels, n_selected, n_dropped) on `device`, at capacity
+    fp.cloud_capacity; n_selected and n_dropped are the host cloud's
+    counters as 0-d tensors (n_selected - n_dropped == count). Matches
     frontend.pointcloud.create_pointcloud up to Morton tie-breaking and f32
     rounding of the back-projection."""
     dev = resolve_device(device)

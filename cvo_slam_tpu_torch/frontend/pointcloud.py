@@ -41,6 +41,22 @@ class PointCloudHost:
     mask: np.ndarray        # (CAP,) bool
     count: int
     selected_pixels: np.ndarray  # (CAP, 2) int32 (x, y); CVO_selected_points
+    # the frontend's counters: points the selector chose with a valid depth
+    # before the capacity cut them to `count`, and how many the cut dropped
+    # (n_selected - n_dropped == count)
+    n_selected: int
+    n_dropped: int
+
+
+def span_attrs(sp, pc: PointCloudHost, shape) -> None:
+    """A frontend span's attributes for the frame of `shape` (h, w, ...):
+    its height and width and the cloud's counters as `selected` and
+    `dropped`. On spans.NULL (the recorder off) four calls that do
+    nothing and allocate nothing."""
+    sp.set("h", shape[0])
+    sp.set("w", shape[1])
+    sp.set("selected", pc.n_selected)
+    sp.set("dropped", pc.n_dropped)
 
 
 def _morton_order(pos: np.ndarray) -> np.ndarray:
@@ -80,7 +96,8 @@ def create_pointcloud(bgr: np.ndarray, gray: np.ndarray, depth: np.ndarray,
     dep = depth.astype(np.float32)
     keep = (status != 0) & (depth != 0) & np.isfinite(dep)
     ys, xs = np.nonzero(keep)           # raster order (row-major)
-    n = min(len(xs), fp.cloud_capacity)
+    n_selected = len(xs)
+    n = min(n_selected, fp.cloud_capacity)
     xs, ys = xs[:n], ys[:n]
 
     cap = fp.cloud_capacity
@@ -120,4 +137,5 @@ def create_pointcloud(bgr: np.ndarray, gray: np.ndarray, depth: np.ndarray,
         positions[:n] = positions[order]
         features[:n] = features[order]
         pix[:n] = pix[order]
-    return PointCloudHost(positions, features, mask, n, pix)
+    return PointCloudHost(positions, features, mask, n, pix, n_selected,
+                          n_selected - n)

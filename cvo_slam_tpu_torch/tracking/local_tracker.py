@@ -27,7 +27,7 @@ from ..cvo import engine
 from ..cvo.engine import Cvo, PointCloud
 from ..data.tum import ImagePair
 from ..device import StreamWorker, resolve_device
-from ..frontend.pointcloud import create_pointcloud
+from ..frontend.pointcloud import create_pointcloud, span_attrs
 from .local_map import LocalMap
 from .types import Keyframe, TrackingResult
 
@@ -257,11 +257,12 @@ class LocalTracker:
             _, cloud, pixels = self._staged
             self._staged = None
             return cloud, pixels
-        with spans.span("frontend.cloud"):
+        with spans.span("frontend.cloud") as sp:
             pc = image.precomputed_cloud   # filled by data.prefetch
             if pc is None:
                 pc = create_pointcloud(image.bgr, image.gray, image.depth,
                                        self.cam, self.cfg.frontend)
+            span_attrs(sp, pc, image.gray.shape)
             return (PointCloud.from_host(pc, self.device),
                     pc.selected_pixels[:pc.count].copy())
 

@@ -92,9 +92,9 @@ def _by_pixel(pix, rows, n):
 
 
 def _assert_cloud(got, want_pix, want_pos, want_feat, n, feat_check):
-    """got (positions, features, mask, count, pixels): the count and the
-    pixel set exact, positions and features pointwise by pixel."""
-    pos, feat, mask, count, pix = (np.asarray(t) for t in got)
+    """got (positions, features, mask, count, pixels, ...): the count and
+    the pixel set exact, positions and features pointwise by pixel."""
+    pos, feat, mask, count, pix = (np.asarray(t) for t in got[:5])
     assert int(count) == n and mask[:n].all() and not mask[n:].any()
     assert set(_by_pixel(pix, pos, n)) == set(_by_pixel(want_pix, want_pos,
                                                         n))

@@ -137,7 +137,7 @@ def test_default_device_is_cuda():
     cfg = SlamConfig.default_shipped().replace(OnlyTracking=True)
     pc = PointCloudHost(np.zeros((8, 3), np.float32),
                         np.zeros((8, 5), np.float32), np.zeros(8, bool), 0,
-                        np.zeros((8, 2), np.int32))
+                        np.zeros((8, 2), np.int32), 0, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
