@@ -28,6 +28,16 @@ Phases; any failure exits non-zero:
      device time (torch.profiler over 20 calls; where the profiler lost
      kernels in every window, queued_device_ms) beside the plain
      version's time and the bound;
+     The pallas_mom iteration's kernels (csrc/moment_step.cu,
+     moment_step_checks): the epilogue against flow_and_step_from_moments
+     on the same Mom, all seven outputs held (D and E against the same
+     function in float64: within 2e-4 relative, or no farther than 4x the
+     plain f32 version); the
+     state update along the whole align of the pair, every step against
+     engine._update with align_loop's transform (counts and ell exact, R
+     and T rtol 1e-6 / atol 1e-7), frozen after the stop; each kernel one
+     device operation a call, its host, device and queued ms beside its
+     plain version's.
      The pair-stats kernel is held the same way, with and without
      moments: value and count, G and inliers, two launches bitwise equal.
      The suite's and pair stats' bounds count only the pairs of the tile
@@ -333,7 +343,7 @@ CHECK_ONLY = ("flow", "step_coeffs")
 # the port's CUDA kernels as torch.profiler names them
 OUR_KERNELS = ("moment_keep_pass", "moment_sum_pass", "suite_",
                "pair_stats_sweep", "flow_pass", "step_pass", "align_kernel",
-               "hessian_post")
+               "hessian_post", "moment_epilogue", "moment_state")
 # the CUDA kernels each wrapper launches, as torch.profiler names them
 DEVICE_NAMES = {
     "moment_flow_step": ("moment_keep_pass", "moment_sum_pass"),
@@ -628,8 +638,9 @@ def kernel_checks(clouds, p, report):
             if err_m > 1e-5:
                 raise AssertionError(f"moment Mom: {err_m:.3e} of its column"
                                      f" max (CAP {cap}, ell {ell})")
-            # through the shared epilogue: omega, v, B, C at the bar; D and
-            # E are reported only (see the module docstring)
+            # through each side's epilogue (the CUDA one on the card, held
+            # on one Mom by moment_step_checks): omega, v, B, C at the bar;
+            # D and E are reported only (see the module docstring)
             got = kernels.moment_flow_step(x, y, fx, fy, mx, my, U, center,
                                            ell, p)
             want = kernels.moment_flow_step_plain(x, y, fx, fy, mx, my, U,
@@ -1017,7 +1028,6 @@ def hessian_post_checks(seq, p, report):
     64-step cap); its device and host ms and device operations per call
     beside the plain version's. Its bound is latency (40 dependent
     rotation rounds a lane), not bytes or flops: no bound_ms."""
-    import numpy as np
     import torch
     from cvo_slam_tpu_torch.cvo import kernels
     from cvo_slam_tpu_torch.ops import pairwise, se3
@@ -1051,16 +1061,7 @@ def hessian_post_checks(seq, p, report):
 
         def plain():
             kernels.hessian_post_plain(H, inl, p)
-        row = {}
-        for name, fn, reps in (("kernel", kern, 50), ("plain", plain, 10)):
-            fn()
-            host = float(np.median([_wall_ms(fn) for _ in range(reps)]))
-            # the window that held the most device operations (the profiler
-            # may lose some of a call's ~1500)
-            dev, ops = max((_device_once(fn) for _ in range(3)),
-                           key=lambda r: (r[1], -(r[0] or 0.0)))
-            row[name] = dict(host_ms=host, device_ms=dev, device_ops=ops)
-        row["kernel"]["queued_device_ms"] = queued_device_ms(kern, 50)
+        row = _host_and_device(kern, plain)
         k, pl = row["kernel"], row["plain"]
         print(f"hessian_post {lanes} lanes: kernel host {k['host_ms']:.4f} "
               f"ms a call (launch to synchronize), device "
@@ -1777,6 +1778,215 @@ def _device_once(fn):
             else None), len(ev)
 
 
+def _host_and_device(kern, plain):
+    """The readings of a one-launch kernel call `kern` and of its plain
+    version: host ms a call (launch to synchronize, median), device ms and
+    device operations of the profiler window that held the most, and the
+    kernel's queued device ms."""
+    import numpy as np
+    row = {}
+    for name, fn, reps in (("kernel", kern, 50), ("plain", plain, 10)):
+        fn()
+        host = float(np.median([_wall_ms(fn) for _ in range(reps)]))
+        # the window that held the most device operations (the profiler
+        # may lose some of a plain call's ~1000-1500)
+        dev, ops = max((_device_once(fn) for _ in range(3)),
+                       key=lambda r: (r[1], -(r[0] or 0.0)))
+        row[name] = dict(host_ms=host, device_ms=dev, device_ops=ops)
+    row["kernel"]["queued_device_ms"] = queued_device_ms(kern, 50)
+    return row
+
+
+def _record_latency(entry, key, row, nbytes, what):
+    """Print and keep one _host_and_device row under times_by_ell[key]
+    (the entry's headline at the first ell or without one): the kernel
+    one device operation a call, its bytes' bound beside it (the kernels
+    are bound by latency, one wave)."""
+    k, pl = row["kernel"], row["plain"]
+    b, _ = bound_ms(0, nbytes)
+    print(f"{entry['name']} {key}: kernel host {k['host_ms']:.4f} ms a "
+          f"call (launch to synchronize), device {k['device_ms']:.4f} ms "
+          f"({k['device_ops']} device operations; queued "
+          f"{k['queued_device_ms']:.4f} ms); plain host "
+          f"{pl['host_ms']:.4f} ms, device {pl['device_ms']:.4f} ms "
+          f"({pl['device_ops']} device operations); bound: latency "
+          f"({what}; its {nbytes} bytes {b:.5f} ms)", flush=True)
+    if k["device_ops"] != 1:
+        raise AssertionError(f"{entry['name']}: {k['device_ops']} device "
+                             f"operations a call, want 1")
+    entry["times_by_ell"][key] = dict(row, bytes_bound_ms=b)
+    if key in (f"CAP {CAPS[0]}", str(ELLS[0])):
+        entry.update(ms=k["host_ms"], device_ms=k["device_ms"],
+                     plain_ms=pl["host_ms"], bound_ms=b,
+                     bound_by=f"latency: {what}")
+
+
+def moment_step_checks(clouds, p, report):
+    """Phase 2, the pallas_mom iteration's kernels of csrc/moment_step.cu
+    against their plain versions on the clouds of kernel_checks (CAP 3072
+    and 3000), ell in ELLS:
+      moment_epilogue against ops/pairwise.flow_and_step_from_moments on
+        the same Mom (the moment kernel's), all seven outputs: nnz exact;
+        omega, v, B, C rtol 2e-4 / atol 1e-5; D and E, whose f32 sums
+        cancel (the module docstring), against the same function in
+        float64 on the same Mom: within 2e-4 of it relative (atol 1e-5),
+        or no farther from it than 4x the plain f32 version;
+      moment_state_init / moment_state_step along the whole align of the
+        pair from the TWIST pose (each iteration's pass from the card's
+        own state), every step against engine._update on the same state
+        and pass output with engine.align_loop's transform: done, iters,
+        nnz and ell exact, R and T rtol 1e-6 / atol 1e-7, the moved cloud
+        rtol 1e-5 / atol 1e-6, then one step after the stop, frozen;
+    two launches of each bitwise equal. Each entry's max_abs_err is the
+    largest difference from the plain f32 version. Times at CAP 3072 as
+    hessian_post_checks's (one device operation a call held)."""
+    import torch
+    from cvo_slam_tpu_torch.cvo import engine, kernels
+    from cvo_slam_tpu_torch.ops import pairwise, se3
+    names = ("omega", "v", "nnz", "B", "C", "D", "E")
+    twist = se3.exp_se3(torch.tensor(TWIST, device="cuda"))
+    R0, T0 = twist[:3, :3].contiguous(), twist[:3, 3].contiguous()
+    for cap, (c0, c1) in clouds.items():
+        x, fx, mx = c0
+        y0, fy, my = c1
+        center, U = pairwise.step_moment_basis(x, mx)
+        U = U.contiguous()
+        # the moving cloud at the TWIST pose, as the state kernel moves it
+        y_tw = (y0 @ R0 - (R0.T @ T0)[None, :]).contiguous()
+        for ell in ELLS:
+            ell_t = torch.tensor(ell, device="cuda")
+            # the epilogue on the moment kernel's own Mom
+            entry = report["moment_epilogue"]
+            Mom, nnz = kernels.moment_pass_cuda(x, y_tw, fx, fy, mx, my, U,
+                                                ell_t, p)
+            got = kernels.moment_epilogue_cuda(Mom, y_tw, center, ell_t,
+                                               nnz, p)
+            again = kernels.moment_epilogue_cuda(Mom, y_tw, center, ell_t,
+                                                 nnz, p)
+            want = pairwise.flow_and_step_from_moments(Mom, y_tw, center,
+                                                       ell_t, nnz, p)
+            exact = pairwise.flow_and_step_from_moments(
+                Mom.double(), y_tw.double(), center.double(),
+                ell_t.double(), nnz, p)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"moment_epilogue: two launches differ "
+                                     f"(CAP {cap}, ell {ell})")
+            if int(got[2]) != int(want[2]):
+                raise AssertionError(f"moment_epilogue nnz {int(got[2])} vs "
+                                     f"{int(want[2])}")
+            err, bad, gaps = 0.0, [], []
+            for name, g, w, w64 in zip(names, got, want, exact):
+                if name == "nnz":
+                    continue
+                g, w = g.double(), w.double()
+                err = max(err, float((g - w).abs().max()))
+                if name in ("D", "E"):
+                    e_k, e_p = float((g - w64).abs()), float((w - w64).abs())
+                    gaps.append(f"{name} {float(w64):.6e}: kernel "
+                                f"{e_k:.2e}, plain {e_p:.2e} off")
+                    ok = e_k <= max(4.0 * e_p, 2e-4 * float(w64.abs())) \
+                        + 1e-5
+                else:
+                    ok = bool(torch.allclose(g, w, rtol=2e-4, atol=1e-5))
+                if not ok:
+                    bad.append(name)
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            print(f"moment_epilogue CAP {cap} ell {ell}: nnz {int(nnz)} "
+                  f"equal, omega v B C against the plain version, D E "
+                  f"against float64 ({'; '.join(gaps)}), outside the bars: "
+                  f"{bad or 'none'}; max |err| {err:.3e}, two launches "
+                  f"bitwise equal", flush=True)
+            if bad:
+                raise AssertionError(f"moment_epilogue {bad} (CAP {cap}, ell "
+                                     f"{ell})")
+            # the state along the whole align, each step against _update
+            entry = report["moment_state_step"]
+            st, y = kernels.moment_state_init(y0, R0, T0, ell_t, p)
+            if not (torch.equal(st.R, R0) and torch.equal(st.T, T0)
+                    and torch.equal(st.ell, ell_t)
+                    and st.n.tolist() == [0, p.max_iter, 0]):
+                raise AssertionError("moment_state_init: the state")
+            err = check_close("moment_state_init y", y, y_tw, 1e-5, 1e-6)
+            k, after = 0, 0
+            while k < p.max_iter and after < 2:
+                out = kernels.moment_flow_step(x, y, fx, fy, mx, my, U,
+                                               center, st.ell, p)
+                got, y = kernels.moment_state_step(st, out, y0, k, p)
+                twice, y2 = kernels.moment_state_step(st, out, y0, k, p)
+                if not (torch.equal(twice.f, got.f)
+                        and torch.equal(twice.n, got.n)
+                        and torch.equal(y2, y)):
+                    raise AssertionError(f"moment_state_step: two launches "
+                                         f"differ (k {k})")
+                R, T, e, dn, it, nz = engine._update(
+                    (st.R.clone(), st.T.clone(), st.ell.clone(),
+                     st.done.bool(), st.iters.long(), st.nnz.clone()),
+                    k, out, p)
+                if [int(got.done), int(got.iters), int(got.nnz)] \
+                        != [int(dn), int(it), int(nz)] \
+                        or float(got.ell) != float(e):
+                    raise AssertionError(
+                        f"moment_state_step k {k} (CAP {cap}, ell {ell}): "
+                        f"{got.n.tolist()} ell {float(got.ell)} vs "
+                        f"{[int(dn), int(it), int(nz)]} ell {float(e)}")
+                err = max(err, check_close("moment_state_step R", got.R, R,
+                                           1e-6, 1e-7),
+                          check_close("moment_state_step T", got.T, T,
+                                      1e-6, 1e-7),
+                          check_close("moment_state_step transform",
+                                      got.transform,
+                                      se3.make_pose(R.T, -(R.T @ T)), 1e-6,
+                                      1e-7),
+                          check_close("moment_state_step y", y,
+                                      y0 @ R - (R.T @ T)[None, :], 1e-5,
+                                      1e-6))
+                if bool(st.done) and not (torch.equal(got.f[:13], st.f[:13])
+                                          and torch.equal(got.n, st.n)):
+                    raise AssertionError("moment_state_step: a stopped "
+                                         "alignment moved")
+                after += bool(got.done)
+                st = got
+                k += 1
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            print(f"moment_state_step CAP {cap} ell {ell}: {k} steps of the "
+                  f"align (stopped at {int(st.iters)}, ell {float(st.ell)}) "
+                  f"each equal to engine._update in done, iters, nnz and "
+                  f"ell, R, T, transform and moved cloud max |err| "
+                  f"{err:.3e}, frozen after the stop, two launches bitwise "
+                  f"equal", flush=True)
+        if cap != CAPS[0]:
+            continue
+        m = y0.shape[0]
+        for ell in ELLS:
+            ell_t = torch.tensor(ell, device="cuda")
+            Mom, nnz = kernels.moment_pass_cuda(x, y_tw, fx, fy, mx, my, U,
+                                                ell_t, p)
+            _record_latency(
+                report["moment_epilogue"], str(ell),
+                _host_and_device(
+                    lambda: kernels.moment_epilogue_cuda(Mom, y_tw, center,
+                                                         ell_t, nnz, p),
+                    lambda: pairwise.flow_and_step_from_moments(
+                        Mom, y_tw, center, ell_t, nnz, p)),
+                m * 4 * (pairwise.N_MOMENTS + 3),
+                "every block sums the flow over all M, then a grid barrier")
+            st, _ = kernels.moment_state_init(y0, R0, T0, ell_t, p)
+            out = kernels.moment_flow_step(x, y_tw, fx, fy, mx, my, U,
+                                           center, ell_t, p)
+            plain_st = (st.R.clone(), st.T.clone(), st.ell.clone(),
+                        st.done.bool(), st.iters.long(), st.nnz.clone())
+
+            def plain_state():
+                R, T = engine._update(plain_st, 0, out, p)[:2]
+                return (y0 @ R + (-(R.T @ T))[None, :]).contiguous()
+            _record_latency(
+                report["moment_state_step"], str(ell),
+                _host_and_device(
+                    lambda: kernels.moment_state_step(st, out, y0, 0, p),
+                    plain_state),
+                m * 24, "one thread's scalar chain, then 3 x M products")
+
+
 def pass_parity(seq, p):
     """The xla pass on the card against the same function on the CPU
     (plain torch there too, with MKL's product and the CPU's
@@ -2363,6 +2573,19 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
           f"SLAM ATE {ate_slam:.4f} m", flush=True)
     align = "align_fused" if backend == "pallas" else "moment_flow_step"
     used = (align, "ip_suite", "pair_stats", "hessian_post")
+    # frame 0 seeds, frame 1 bootstraps (one alignment), every later frame
+    # aligns twice
+    n_track = 1 + 2 * (stats["frames"] - 2)
+    if backend == "pallas_mom":
+        # engine.align_loop_moment_cuda: the moment epilogue and the state
+        # update once an iteration, the initial state once a tracking
+        # alignment (the verifications align under xla)
+        used += ("moment_epilogue", "moment_state_step")
+        if launches["moment_epilogue"] != launches[align] \
+                or launches["moment_state_step"] \
+                != launches[align] + n_track:
+            raise AssertionError(f"{backend}: SLAM launched {launches} for "
+                                 f"{n_track} tracking alignments")
     # one epilogue launch per suite and per verification (8 pair stats)
     epilogues = launches["ip_suite"] + launches["pair_stats"] // 8
     if min(launches[k] for k in used) <= 0 or stats["backend"] != backend \
@@ -2370,9 +2593,7 @@ def slam(folder, report, card, device="cuda", cam=None, cfg=None,
             or any(n for k, n in launches.items() if k not in used):
         raise AssertionError(f"{backend}: SLAM launched {launches}")
     if backend == "pallas":
-        # frame 0 seeds, frame 1 bootstraps (one alignment), every later
-        # frame aligns twice; the rest are the loop-closure verifications
-        n_track = 1 + 2 * (stats["frames"] - 2)
+        # the rest are the loop-closure verifications
         if launches[align] - n_track != stats.get("lc_candidates", 0):
             raise AssertionError(
                 f"align_fused launched {launches[align]} times for {n_track} "
@@ -2980,6 +3201,7 @@ def main(argv=None) -> int:
         with phase("2"):
             clouds = first_pair_clouds(folder, cam)
             kernel_checks(clouds, p, report)
+            moment_step_checks(clouds, p, report)
             flow_step_checks(clouds, p, report)
             seq = sequence_clouds(folder, cam, CAPS[0], ALIGN_PAIRS + 1)
             align_checks(seq, p, report)

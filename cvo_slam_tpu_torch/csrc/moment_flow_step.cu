@@ -9,8 +9,10 @@
 //   keep  = gate and a > sp_thres
 // and writes Mom[j, 0:35] = sum_i keep * a * U[i, 0:35] (U = the 35
 // centred monomials of x, degree <= 4) and nnz = sum keep. The O(M)
-// epilogue (flow and quartic step coefficients) stays in PyTorch
-// (ops/pairwise.flow_and_step_from_moments).
+// epilogue (flow and quartic step coefficients) is moment_step.cu's
+// moment_epilogue_kernel on the card, launched after both passes by the
+// same wrapper (cvo/kernels.moment_flow_step); its plain version is
+// ops/pairwise.flow_and_step_from_moments.
 //
 // What bounds it: arithmetic. At CAP 3072 one launch visits 9.4 M pairs,
 // ~9 instructions each for the geometric distance by explicit differences;

@@ -26,7 +26,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("moment_flow_step.cu", "ip_suite.cu", "pair_stats.cu",
-           "flow_step.cu", "align_fused.cu", "hessian_post.cu")
+           "flow_step.cu", "align_fused.cu", "hessian_post.cu",
+           "moment_step.cu")
 
 # -fmad=false: every float operation of a kernel rounds as the same
 # operation of its plain PyTorch version, so gate decisions agree bit for bit

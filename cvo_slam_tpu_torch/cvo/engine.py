@@ -5,14 +5,20 @@
     (flow norms < eps at :782; se3 distance < eps_2 at :804) and the ell
     anneal schedule (:810-812) on one of four backends, named as in the
     JAX package (CVO_SLAM_BACKEND, `default_backend`):
-      - 'pallas_mom' (default) and 'pallas_iter': `align_loop`, a host loop
-        of device iterations running the moment kernel
+      - 'pallas_mom' (default) and 'pallas_iter': a host loop of device
+        iterations running the moment kernel
         (cvo.kernels.moment_flow_step) or the per-pair kernel
         (cvo.kernels.flow_and_step) once per iteration. Every state update
         is gated on `active = ~done`, so iterations run after the stop are
         no-ops: the loop reads the stop flag from the device only once per
         chunk of ALIGN_CHUNK iterations, and the iteration count is the
-        same as a loop that stops at once;
+        same as a loop that stops at once. 'pallas_mom' on a CUDA device
+        runs `align_loop_moment_cuda`: four launches an iteration (the
+        moment kernel's two passes, its epilogue, the state update with the
+        next moved cloud, cvo.kernels.moment_state_step) and no PyTorch
+        operation, after one launch for the initial state. 'pallas_iter', and 'pallas_mom' on the
+        CPU, run `align_loop`, whose `_update` is the plain version of that
+        state update;
       - 'pallas': the whole loop in one launch (cvo.kernels.align_fused);
       - 'xla': the JAX package's dense moment-form pass in plain torch
         (ops.pairwise.flow_and_step_moments_lanes: the gated colour kernel
@@ -134,6 +140,7 @@ def align(fixed: PointCloud, moving: PointCloud, R0, T0, ell0,
     with spans.span("align") as sp:
         sp.set("backend", backend)
         dev = fixed.device
+        sp.set("epilogue", epilogue_site(backend, dev))
         x, fx, mx = fixed.positions, fixed.features, fixed.mask
         y0, fy, my = moving.positions, moving.features, moving.mask
         R0, T0 = _f32(R0, dev), _f32(T0, dev)
@@ -156,11 +163,25 @@ def align(fixed: PointCloud, moving: PointCloud, R0, T0, ell0,
             # moment basis is a loop constant
             center, U = pairwise.step_moment_basis(x, mx)
             U = U.contiguous()
+            if epilogue_site(backend, dev) == "card":
+                return align_loop_moment_cuda(x, fx, mx, y0, fy, my, U,
+                                              center, R0, T0, ell0, p)
 
             def iterate(y, ell):
                 return kernels.moment_flow_step(x, y, fx, fy, mx, my, U,
                                                 center, ell, p)
         return align_loop(iterate, y0, R0, T0, ell0, p)
+
+
+def epilogue_site(backend: str, device) -> str:
+    """Where an align's per-iteration state update runs: 'card' for
+    'pallas' (inside align_fused) and 'pallas_mom' (the state kernel of
+    align_loop_moment_cuda) on a CUDA device, else 'host' (`_update`'s
+    torch operations, launched from the host). Chosen by the device type and
+    the backend alone."""
+    card = torch.device(device).type == "cuda" \
+        and backend in ("pallas", "pallas_mom")
+    return "card" if card else "host"
 
 
 def _initial_state(R0, T0, ell0, device, p: CvoParams):
@@ -233,6 +254,32 @@ def align_loop(iterate, y0, R0, T0, ell0, p: CvoParams) -> AlignResult:
         if done:
             break
     return _result(state)
+
+
+def align_loop_moment_cuda(x, fx, mx, y0, fy, my, U, center, R0, T0, ell0,
+                           p: CvoParams) -> AlignResult:
+    """align_loop of the 'pallas_mom' backend on a CUDA device, with no
+    PyTorch operation an iteration: kernels.moment_flow_step (the moment
+    kernel's two passes and its epilogue), then kernels.moment_state_step
+    (the state update of `_update` and the next moved cloud), each
+    iteration's cloud and state new tensors. The stop flag is read once per
+    ALIGN_CHUNK iterations; the result's tensors are views of the last
+    state."""
+    state, y = kernels.moment_state_init(y0, R0.contiguous(),
+                                         T0.contiguous(), ell0, p)
+    k = 0
+    while k < p.max_iter:
+        for _ in range(min(ALIGN_CHUNK, p.max_iter - k)):
+            out = kernels.moment_flow_step(x, y, fx, fy, mx, my, U, center,
+                                           state.ell, p)
+            state, y = kernels.moment_state_step(state, out, y0, k, p)
+            k += 1
+        with spans.span("device.read"):
+            done = bool(state.done)
+        if done:
+            break
+    return AlignResult(state.R, state.T, state.transform, state.ell,
+                       state.iters, state.nnz)
 
 
 def _moved_lanes(y0, R, T):

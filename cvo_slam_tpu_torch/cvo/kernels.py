@@ -4,10 +4,17 @@ version.
 
   * `moment_flow_step`: one align iteration (cvo.cpp:187-334). The kernel
     computes the moment matrix Mom (M, 35) and the kept-pair count nnz; the
-    O(M) epilogue ops.pairwise.flow_and_step_from_moments gives
-    (omega, v, nnz, B, C, D, E). Its pass 1 writes the moment form's keep
-    bitmask (`moment_keep_bits_plain`), pass 2 sums each row's kept pairs
-    in ascending column order (`moment_from_bits_plain`).
+    O(M) epilogue gives (omega, v, nnz, B, C, D, E): on the card one launch
+    of `moment_epilogue` (csrc/moment_step.cu), on the CPU its plain version
+    ops.pairwise.flow_and_step_from_moments. The kernel's pass 1 writes the
+    moment form's keep bitmask (`moment_keep_bits_plain`), pass 2 sums each
+    row's kept pairs in ascending column order (`moment_from_bits_plain`).
+  * `moment_state_init` / `moment_state_step` (csrc/moment_step.cu, on the
+    card only): the pallas_mom align loop's state update (csrc/
+    align_state.cuh's epilogue, shared with align_fused) and the moved
+    cloud of the next iteration, one launch each, into new tensors
+    (engine.align_loop_moment_cuda); their plain version is engine._update
+    with engine.align_loop's transform.
   * `ip_suite` (csrc/ip_suite.cu): the pairwise work of
     compute_innerproduct (cvo.cpp:475-503): four gated inner products with
     their pair counts and the 13x13 Hessian moment matrix G, each pair set
@@ -77,7 +84,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -134,8 +141,17 @@ PAIR_STATS_LANES = KernelInfo("pair_stats_lanes", "pair_stats.cu",
 # no Pallas kernel: the JAX package's plain hessian_postprocess, on the card
 HESSIAN_POST = KernelInfo("hessian_post", "hessian_post.cu",
                           "none (cvo_slam_tpu/cvo/engine.py:264, plain)")
+# no Pallas kernel: the XLA operations around the JAX package's moment
+# kernel, on the card
+MOMENT_EPILOGUE = KernelInfo(
+    "moment_epilogue", "moment_step.cu",
+    "none (cvo_slam_tpu/ops/pairwise.py:286, plain)")
+MOMENT_STATE = KernelInfo(
+    "moment_state_step", "moment_step.cu",
+    "none (cvo_slam_tpu/cvo/engine.py:197-247, plain)")
 KERNELS = (MOMENT, IP_SUITE, PAIR_STATS, FLOW_AND_STEP, FLOW, STEP, ALIGN,
-           ALIGN_LANES, IP_SUITE_LANES, PAIR_STATS_LANES, HESSIAN_POST)
+           ALIGN_LANES, IP_SUITE_LANES, PAIR_STATS_LANES, HESSIAN_POST,
+           MOMENT_EPILOGUE, MOMENT_STATE)
 MAX_LANES = 32   # lanes of one align_fused launch (csrc/align_fused.cu)
 # a stack's lane stride is its capacity rounded up to this many points, so
 # that every lane's positions (12 B a point), features (20 B) and mask
@@ -179,7 +195,12 @@ def _ptr(t):
 
 
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The raw handle of the current stream on `device`, as torch's own
+    generated code reads it (torch.cuda.current_stream builds a Stream
+    object, ~10 us a call: several a pallas_mom iteration)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def _raise_on(err, name):
@@ -566,6 +587,13 @@ def _inv2cl2(p: CvoParams) -> float:
     return 1.0 / (2.0 * p.c_ell * p.c_ell)
 
 
+@functools.lru_cache(maxsize=16)
+def _moment_consts(p: CvoParams):
+    """The moment kernel's gate and kernel constants (once per params)."""
+    return (pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
+            _inv2cl2(p), _s2cs2(p), p.sp_thres)
+
+
 def moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, p: CvoParams,
                      keep_bits=None, launch_info=None, tile_skip=True):
     """The CUDA moment kernel: same function as moment_pass_plain, in two
@@ -597,8 +625,7 @@ def moment_pass_cuda(x, y, fx, fy, mx, my, U, ell, p: CvoParams,
     counts = torch.empty((2,), dtype=torch.int32, device=dev)   # nnz, tiles
     err = fn(_ptr(x), _ptr(fx), _ptr(mx), _ptr(U), _ptr(y), _ptr(fy),
              _ptr(my), _ptr(ell), n, m, plan.chunks, plan.tiles_per_chunk,
-             pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
-             _inv2cl2(p), _s2cs2(p), p.sp_thres, int(tile_skip),
+             *_moment_consts(p), int(tile_skip),
              _ptr(keep_bits), _ptr(npart), _ptr(mom), _ptr(counts),
              _stream(dev))
     _raise_on(err, MOMENT.name)
@@ -620,6 +647,46 @@ def moment_pass(x, y, fx, fy, mx, my, U, ell, p: CvoParams):
     raise ValueError(f"unsupported device {x.device}")
 
 
+EPILOGUE_ROWS = 256   # moving points per block of the epilogue kernel
+
+
+def moment_epilogue_cuda(Mom, y, center, ell, nnz, p: CvoParams):
+    """The CUDA epilogue of the moment form (csrc/moment_step.cu): the same
+    function and tuple as pairwise.flow_and_step_from_moments in one
+    launch, the outputs views of one new (10,) tensor (omega, v, B, C, D,
+    E) and nnz passed through."""
+    dev = Mom.device
+    m = y.shape[0]
+    _check("Mom", Mom, torch.float32, (m, pairwise.N_MOMENTS), dev)
+    _check("moving positions", y, torch.float32, (m, 3), dev)
+    _check("center", center, torch.float32, (3,), dev)
+    ell = _as_ell(ell, dev).contiguous()
+    # the 10 outputs, then 4 partials for each block
+    blocks = max(1, -(-m // EPILOGUE_ROWS))
+    buf = torch.empty((10 + 4 * blocks,), dtype=torch.float32, device=dev)
+    out = buf[:10]
+    fn = _fn(MOMENT_EPILOGUE, "moment_epilogue_launch",
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float] * 2
+             + [ctypes.c_void_p] * 3)
+    err = fn(_ptr(Mom), _ptr(y), _ptr(center), _ptr(ell), m, p.c, p.d,
+             _ptr(buf[10:]), _ptr(out), _stream(dev))
+    _raise_on(err, MOMENT_EPILOGUE.name)
+    MOMENT_EPILOGUE.count_launch()
+    return out[0:3], out[3:6], nnz, out[6], out[7], out[8], out[9]
+
+
+def moment_epilogue(Mom, y, center, ell, nnz, p: CvoParams):
+    """(omega, v, nnz, B, C, D, E) from the moment matrix Mom (M, 35) of
+    the moved cloud y (cvo.cpp:187-334): one launch on the card, the plain
+    version (pairwise.flow_and_step_from_moments) on the CPU."""
+    if Mom.device.type == "cpu":
+        return pairwise.flow_and_step_from_moments(Mom, y, center, ell, nnz,
+                                                   p)
+    if Mom.device.type == "cuda":
+        return moment_epilogue_cuda(Mom, y, center, ell, nnz, p)
+    raise ValueError(f"unsupported device {Mom.device}")
+
+
 def moment_flow_step(x, y, fx, fy, mx, my, U, center, ell, p: CvoParams):
     """One align iteration: (omega, v, nnz, B, C, D, E).
 
@@ -628,7 +695,7 @@ def moment_flow_step(x, y, fx, fy, mx, my, U, center, ell, p: CvoParams):
     cloud's moment basis (pairwise.step_moment_basis)."""
     ell = _as_ell(ell, x.device)
     Mom, nnz = moment_pass(x, y, fx, fy, mx, my, U, ell, p)
-    return pairwise.flow_and_step_from_moments(Mom, y, center, ell, nnz, p)
+    return moment_epilogue(Mom, y, center, ell, nnz, p)
 
 
 def moment_flow_step_plain(x, y, fx, fy, mx, my, U, center, ell,
@@ -637,6 +704,138 @@ def moment_flow_step_plain(x, y, fx, fy, mx, my, U, center, ell,
     ell = _as_ell(ell, x.device)
     Mom, nnz = moment_pass_plain(x, y, fx, fy, mx, my, U, ell, p)
     return pairwise.flow_and_step_from_moments(Mom, y, center, ell, nnz, p)
+
+
+# ---------------------------------------------------------------------------
+# the pallas_mom align loop's state on the card
+# ---------------------------------------------------------------------------
+
+ANNEAL_STEPS = 3            # steps of the ell anneal the kernels take
+ANNEAL_NEVER = 2 ** 31 - 1  # the iteration of a padding step: never passed
+
+
+def anneal_schedule(p: CvoParams):
+    """The ell anneal schedule (cvo.cpp:810-812) as csrc/align_state.cuh's
+    epilogue takes it: (iterations, values), ANNEAL_STEPS of each; after
+    iteration k, ell takes the value of every step whose iteration k
+    exceeds, in step order. A shorter schedule is padded with steps that
+    never fire."""
+    its, vals = tuple(p.ell_anneal_iters), tuple(p.ell_anneal_values)
+    if len(its) != len(vals) or len(its) > ANNEAL_STEPS:
+        raise ValueError(f"the kernels take an ell anneal schedule of at "
+                         f"most {ANNEAL_STEPS} (iteration, value) steps")
+    pad = ANNEAL_STEPS - len(its)
+    return (tuple(int(i) for i in its) + (ANNEAL_NEVER,) * pad,
+            tuple(float(v) for v in vals) + (0.0,) * pad)
+
+
+@functools.lru_cache(maxsize=16)
+def _align_params(p: CvoParams, tile_skip=True):
+    """(hf, hi): the host arrays of csrc/align_state.cuh's align_params,
+    which align_fused and the pallas_mom state update take (once per params;
+    the kernels' entry points only read them)."""
+    iters, values = anneal_schedule(p)
+    hf = (ctypes.c_float * 14)(
+        pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
+        2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d, p.eps,
+        p.eps_2, p.min_step, p.max_step, *values)
+    hi = (ctypes.c_int * 5)(*iters, p.max_iter, int(tile_skip))
+    return hf, hi
+
+
+class MomentState(NamedTuple):
+    """The state of a pallas_mom alignment on the card, as the state
+    launches write it: f (29,) float32, R (row-major), T, ell and the
+    transform [R^T | -R^T T] (4 x 4); n (3,) int32, done, iters, nnz. The
+    properties are views."""
+    f: torch.Tensor
+    n: torch.Tensor
+
+    @property
+    def R(self):
+        return self.f[:9].view(3, 3)
+
+    @property
+    def T(self):
+        return self.f[9:12]
+
+    @property
+    def ell(self):
+        return self.f[12]
+
+    @property
+    def transform(self):
+        return self.f[13:29].view(4, 4)
+
+    @property
+    def done(self):
+        return self.n[0]
+
+    @property
+    def iters(self):
+        return self.n[1]
+
+    @property
+    def nnz(self):
+        return self.n[2]
+
+
+def _state_launch(R, T, ell, n, out, k: int, y0, p: CvoParams):
+    """One launch of the state kernel: from the state (R, T, ell; n the
+    int32 (done, iters, nnz), None for an initial state) and, for k >= 0,
+    iteration k's pass output `out` = (omega, v, nnz, B, C, D, E), a new
+    MomentState and the moved cloud of y0 (a new (M, 3) tensor)."""
+    dev = y0.device
+    m = y0.shape[0]
+    _check("moving positions", y0, torch.float32, (m, 3), dev)
+    _check("R", R, torch.float32, (3, 3), dev)
+    _check("T", T, torch.float32, (3,), dev)
+    _check("ell", ell, torch.float32, (), dev)
+    null = ctypes.c_void_p(None)
+    n_ptr = null
+    pass_ptrs = [null] * 7
+    if n is not None:
+        _check("state counts", n, torch.int32, (3,), dev)
+        n_ptr = _ptr(n)
+    if k >= 0:
+        omega, v, nnz_k, B, C, D, E = out
+        _check("omega", omega, torch.float32, (3,), dev)
+        _check("v", v, torch.float32, (3,), dev)
+        _check("nnz", nnz_k, torch.int32, (), dev)
+        for name, t in zip("BCDE", (B, C, D, E)):
+            _check(name, t, torch.float32, (), dev)
+        pass_ptrs = [_ptr(t) for t in (omega, v, B, C, D, E, nnz_k)]
+    hf, hi = _align_params(p)
+    # the state's 29 floats and 3 ints in one new allocation
+    words = torch.empty((32,), dtype=torch.float32, device=dev)
+    st = MomentState(words[:29], words[29:].view(torch.int32))
+    y = torch.empty((m, 3), dtype=torch.float32, device=dev)
+    fn = _fn(MOMENT_STATE, "moment_state_launch",
+             [ctypes.c_void_p] * 11 + [ctypes.c_int]
+             + [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)]
+             + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    err = fn(_ptr(R), _ptr(T), _ptr(ell), n_ptr, *pass_ptrs, k, hf, hi,
+             _ptr(y0), m, _ptr(st.f), _ptr(st.n), _ptr(y), _stream(dev))
+    _raise_on(err, MOMENT_STATE.name)
+    MOMENT_STATE.count_launch()
+    return st, y
+
+
+def moment_state_init(y0, R0, T0, ell0, p: CvoParams):
+    """The initial state of a pallas_mom alignment on the card from (R0
+    (3, 3), T0 (3,), ell0 ()) and the moving cloud y0 (M, 3) under it, in
+    one launch: (MomentState, y)."""
+    return _state_launch(R0, T0, ell0, None, None, -1, y0, p)
+
+
+def moment_state_step(state: MomentState, out, y0, k: int, p: CvoParams):
+    """Iteration k's state update on the card (engine._update's function:
+    the step root, both stop tests and the anneal, a stopped alignment
+    frozen) from its pass output out = (omega, v, nnz, B, C, D, E), and the
+    moving cloud y0 under the new state, in one launch: (MomentState, y),
+    both new tensors."""
+    return _state_launch(state.R, state.T, state.ell, state.n, out, k, y0,
+                         p)
 
 
 # ---------------------------------------------------------------------------
@@ -1151,15 +1350,9 @@ def _align_launch(x, fx, mx, y0, fy, my, R0, T0, ell0, p: CvoParams, lanes,
     _check("R0", R0, torch.float32, (lanes, 3, 3), dev)
     _check("T0", T0, torch.float32, (lanes, 3), dev)
     _check("ell0", ell0, torch.float32, (lanes,), dev)
-    if len(p.ell_anneal_iters) != 3 or len(p.ell_anneal_values) != 3:
-        raise ValueError("align_fused takes a 3-step ell anneal schedule")
+    hf, hi = _align_params(p, tile_skip)
     init = torch.cat([R0.reshape(lanes, 9), T0, ell0[:, None]],
                      dim=1).contiguous()
-    hf = (ctypes.c_float * 14)(
-        pairwise.log_sp_ratio(p), pairwise.d2_color_threshold(p),
-        2.0 * p.c_ell * p.c_ell, _s2cs2(p), p.sp_thres, p.c, p.d, p.eps,
-        p.eps_2, p.min_step, p.max_step, *p.ell_anneal_values)
-    hi = (ctypes.c_int * 5)(*p.ell_anneal_iters, p.max_iter, int(tile_skip))
     info = (ctypes.c_int * 4)()
     plan, _, _ = _plan_for(ALIGN, "align_fused_geometry", n, m, dev)
     fn = _fn(ALIGN, "align_fused_launch",

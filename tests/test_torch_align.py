@@ -541,20 +541,38 @@ def test_library_name_hashes_included_headers(tmp_path):
     changed = {s for s in cuda_build.SOURCES if before[s] != after[s]}
     # every source but hessian_post.cu (which includes no header) includes
     # it through flow_step.cuh (pair_stats.cu and ip_suite.cu through
-    # pair_stats.cuh, which includes flow_step.cuh)
+    # pair_stats.cuh, align_fused.cu and moment_step.cu through
+    # align_state.cuh, both of which include flow_step.cuh)
     assert changed == {"ip_suite.cu", "flow_step.cu", "align_fused.cu",
-                       "moment_flow_step.cu", "pair_stats.cu"}
+                       "moment_flow_step.cu", "pair_stats.cu",
+                       "moment_step.cu"}
     with open(os.path.join(csrc, "flow_step.cuh"), "a") as f:
         f.write("\n// edited\n")
     again = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
     assert {s for s in cuda_build.SOURCES if after[s] != again[s]} \
         == {"flow_step.cu", "align_fused.cu", "moment_flow_step.cu",
-            "pair_stats.cu", "ip_suite.cu"}
+            "pair_stats.cu", "ip_suite.cu", "moment_step.cu"}
     with open(os.path.join(csrc, "pair_stats.cuh"), "a") as f:
         f.write("\n// edited\n")
     last = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
     assert {s for s in cuda_build.SOURCES if again[s] != last[s]} \
         == {"pair_stats.cu", "ip_suite.cu"}
+    # the align state shared by the pallas and pallas_mom loops rebuilds
+    # those two libraries and no other
+    with open(os.path.join(csrc, "align_state.cuh"), "a") as f:
+        f.write("\n// edited\n")
+    shared = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
+    assert {s for s in cuda_build.SOURCES if last[s] != shared[s]} \
+        == {"align_fused.cu", "moment_step.cu"}
+    # an edit of the new source rebuilds its library alone
+    with open(os.path.join(csrc, "moment_step.cu"), "a") as f:
+        f.write("\n// edited\n")
+    final = {s: cuda_build._so_path(s, csrc) for s in cuda_build.SOURCES}
+    assert {s for s in cuda_build.SOURCES if shared[s] != final[s]} \
+        == {"moment_step.cu"}
+    assert cuda_build._source_closure("moment_step.cu", csrc) == [
+        "moment_step.cu", "align_state.cuh", "flow_step.cuh",
+        "pair_math.cuh"]
     assert cuda_build._so_path("ip_suite.cu") \
         == cuda_build._so_path("ip_suite.cu", cuda_build.CSRC_DIR)
 
